@@ -1,6 +1,6 @@
 '''
 End-to-end WRMF on MovieLens-100K — mirror of the reference driver
-(``mfrec/examples/example1b_movielens_100k_wrmf.py``), TPU-native.
+(``mfrec/examples/example1b_movielens_100k_wrmf.py``), in JAX.
 
 Loads `~/datasets/ml-100k/u1.base` if present; otherwise falls back to a
 synthetic MovieLens-shaped dataset (the sandbox has no network access).
@@ -51,6 +51,8 @@ def load_dataset(dataset='u1'):
 
 
 if __name__ == '__main__':
+    from mfrec_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     (users, items, values), u_test, item_file = load_dataset('u1')
     nbr_user = int(users.max())
     nbr_feature = int(items.max())

@@ -22,6 +22,8 @@ from mfrec_tpu.eval.metrics import test_predict_rating, precision_recall
 from examples.example1b_movielens_100k_wrmf import load_dataset
 
 if __name__ == '__main__':
+    from mfrec_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     engine = sys.argv[1] if len(sys.argv) > 1 else 'fused'
     (users, items, values), u_test, _ = load_dataset('u1')
     nbr_users = int(users.max()) + 1

@@ -80,4 +80,6 @@ def main():
 
 
 if __name__ == '__main__':
+    from mfrec_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

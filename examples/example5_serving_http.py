@@ -3,8 +3,7 @@ Train a model and serve it over HTTP (mfrec_tpu.serving).
 
 The server fronts the batched device retrieval path: concurrent
 /recommend requests are coalesced into one recommend_batch call
-(blocked P@Q^T + fused top-k; Pallas on TPU, mesh-sharded when >1
-device).  This script trains on synthetic MovieLens-shaped data, starts
+(blocked P@Q^T + fused top-k, mesh-sharded when >1 device).  This script trains on synthetic MovieLens-shaped data, starts
 the server on an ephemeral port, issues a few requests against itself,
 and exits — swap the last block for ``serve(model, port=8080)`` to run
 a real endpoint.
@@ -45,4 +44,6 @@ def main():
 
 
 if __name__ == '__main__':
+    from mfrec_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

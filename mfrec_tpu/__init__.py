@@ -1,8 +1,8 @@
 '''
-mfrec_tpu — a TPU-native latent-factor recommender framework.
+mfrec_tpu — a latent-factor recommender framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capability surface of the
-reference library ``mlaprise/mfrec`` (see /root/reference):
+reference library ``mlaprise/mfrec``:
 
 * Funk/BellKor SGD matrix factorization with no/fixed/learned biases and
   SVD++-style implicit feedback (reference: ``mfrec/lib/gd_estimator.pyx``,
@@ -15,9 +15,10 @@ reference library ``mlaprise/mfrec`` (see /root/reference):
 * top-N retrieval, item/user similarity + graph export, fold-in of new
   users/items, checkpointing, RMSE/MAE/P@N evaluation.
 
-The compute path is idiomatic JAX: batched/blocked kernels on the MXU,
-``shard_map`` + collectives over a device mesh for scale, and Pallas for
-the fused hot ops.  Host-side preprocessing has a native C++ fast path
+The compute path is idiomatic JAX: batched/blocked XLA programs,
+``shard_map`` + collectives over a device mesh for scale, and a Pallas
+kernel (Triton route, NVIDIA GPUs) for the alternating engine's inner
+sweeps.  Host-side preprocessing has a native C++ fast path
 (``mfrec_tpu/native``).
 '''
 

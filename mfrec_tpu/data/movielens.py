@@ -75,8 +75,8 @@ def _compact_ids(users, items, values):
 def load_mldat_if_present(env='MFREC_ML10M_DIR', search_dirs=None,
                           filename='ratings.dat'):
     '''Real MovieLens-1M/10M ``ratings.dat`` (``UserID::MovieID::Rating::
-    Timestamp``), when present (VERDICT r4 #8: the sandbox has no
-    network, but the first day WITH the files must need zero code).
+    Timestamp``), when present (data is never downloaded; a checkout
+    WITH the files needs zero code).
     Returns (users, items, values) 0-indexed/compacted, or None.
     Point ``MFREC_ML10M_DIR`` (or ``MFREC_ML1M_DIR``) at the directory.
 

@@ -4,7 +4,7 @@ Host-side ratings containers.
 The reference stores ratings in a ``scipy.sparse.lil_matrix`` and converts
 per-call via python iterators (``base.py:266,284,1115`` in /root/reference).
 Here the canonical representation is a flat COO triple of numpy arrays —
-the layout the TPU kernels consume directly — with CSR/CSC row pointers and
+the layout the device kernels consume directly — with CSR/CSC row pointers and
 padded-bucket layouts derived (and cached) on demand.
 
 Native fast paths for sorting/bincount/CSR assembly live in
@@ -33,8 +33,8 @@ def create_bool_sparse_col(ratings):
 
 def padded_segment_gather(ptr, rows, L, *arrays):
     '''Vectorized padded CSR-segment gather — the shared core of every
-    host-side padded-list layout (VERDICT r4 #5: this used to live as
-    three drifting copies in ``ops.fn.padded_user_lists``,
+    host-side padded-list layout (this used to live as three drifting
+    copies in ``ops.fn.padded_user_lists``,
     ``ops.topk.pad_rated_lists`` and ``Ratings.padded_rows``).
 
     For each row ``r`` in ``rows`` take up to ``L`` entries of its
@@ -333,7 +333,7 @@ class Ratings:
         power-of-two buckets; each bucket yields
         ``(row_ids[R], nbr_idx[R, L], nbr_val[R, L], mask[R, L])``.
         Replaces the reference's serial CSR walk in ``als_implicit.pyx:264-302``
-        with a layout that maps to batched MXU matmuls.
+        with a layout that maps to batched matmuls.
         '''
         key = ('padded', axis, buckets)
         if key in self._cache:

@@ -32,9 +32,8 @@ class ConvergenceDriver:
         # would stop, multiply ``lr_scale`` by ``plateau_decay`` and keep
         # training instead — until the scale floors at ``min_lr_scale``
         # (then the reference stop rule applies unchanged).  Measured at
-        # ML-10M (bench_logs/r4/ttq_decay_plateau.log): decay FROM the
-        # plateau breaks below the constant-rate trajectory, while decay
-        # from epoch 0 loses everywhere (ttq_decay_ml10m.log) — so this
+        # ML-10M: decay FROM the plateau breaks below the constant-rate
+        # trajectory, while decay from epoch 0 loses everywhere — so this
         # is the only decay shape worth turning on.  1.0 disables (the
         # reference semantics, and the shipped default).
         self.plateau_decay = float(plateau_decay)

@@ -90,7 +90,7 @@ def optimize_regularization_vmapped(users, items, values, u_test, regs,
                                     seed=0):
     '''Train one model PER regularization value simultaneously — factors
     stacked on a sweep axis, the whole sweep is a single vmapped device
-    program (TPU-native replacement for the reference's sequential
+    program (batched replacement for the reference's sequential
     re-train loops; the ALS L2 "reg sweep" of BASELINE config 2 for the
     SGD path).  Returns (regs, test_rmses [S]).'''
     import jax.numpy as jnp
@@ -114,7 +114,7 @@ def optimize_regularization_vmapped(users, items, values, u_test, regs,
 
     # seed controls the batch shuffle AND the init draw below, so callers
     # varying it for variance estimation get genuinely independent runs
-    # (ADVICE r4: a hardcoded shuffle seed made 'seeds' share batches)
+    # (a hardcoded shuffle seed made 'seeds' share batches)
     ub, ib, rb, mb = sgd_mf.batch_ratings(users, items, values, batch_size,
                                           seed=int(seed))
     # One random init SHARED across the sweep axis: the per-sample epoch

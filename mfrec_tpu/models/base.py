@@ -1,7 +1,7 @@
 '''
 BaseRecommender — data management, biases, SVD, similarity, persistence.
 
-The TPU-native re-design of the reference's ``mfrec/recommendation/base.py``
+The JAX re-design of the reference's ``mfrec/recommendation/base.py``
 (class ``BaseRecommender``, base.py:68-1578).  The public surface (method
 names, parameter-dict keys, factor-array naming) mirrors the reference so a
 user can port call sites directly; the internals are numpy on the host and
@@ -10,7 +10,7 @@ JAX/XLA kernels on device.
 Factor-layout note: the reference stores ``svd_u`` = item factors with shape
 [dimensionality, nbr_items] and ``svd_v`` = user factors with shape
 [dimensionality, nbr_users] (base.py:144-146 — u=items, v=users).  We store
-row-major ``Q`` [items, k] / ``P`` [users, k] internally (TPU-friendly) and
+row-major ``Q`` [items, k] / ``P`` [users, k] internally (device-friendly) and
 expose ``svd_u``/``svd_v`` as transposed properties for API parity.
 '''
 from __future__ import annotations
@@ -259,7 +259,7 @@ class BaseRecommender(object):
                               items_array[nz].astype(np.float32))
 
     def set_ratings(self, users, items, values):
-        '''Bulk ingest (the TPU-native replacement for the per-rating loop
+        '''Bulk ingest (the vectorized replacement for the per-rating loop
         in the reference example, example1b:40-41).'''
         self.ratings.set_many(users, items, values)
 

@@ -82,19 +82,15 @@ class FNRecommender(MFRecommender):
         self.dimensionality = 40
         self.batch_size = 16384
         # 'auto' = the sorted-window alternating tier (the benchmarked
-        # fast path, VERDICT r4 #2); 'fused' keeps the per-batch
+        # fast path); 'fused' keeps the per-batch
         # scatter-add tier (the oracle-parity tier) reachable.
         self.engine = 'auto'
-        # in-VMEM gradient sweeps per window batch on the alternating
-        # tier; profile/X/Y aggregation phases stay once-per-epoch like
-        # the implicit tier's Y machinery.  The rate ladder climbs to
-        # +10.3% sweeps/s at T=256 (tools/ab_fn.py, interleaved,
-        # bench_logs/r5_ab_fn_t*.log) — but time-to-quality REVERSES it
-        # (r5_ttq_fn*.log, brackets 0.993-1.001): FN's per-epoch quality
-        # driver is the once-per-epoch X/Y update, not the half-pass
-        # sweeps, so T=64 reaches every target RMSE <= 0.44 first
-        # (T=128/256/512 lose at EVERY target; T=32 wins only the
-        # shallow first seconds).  The default follows the TTQ evidence.
+        # gradient sweeps per window batch on the alternating tier;
+        # profile/X/Y aggregation phases stay once-per-epoch like the
+        # implicit tier's Y machinery.  FN's per-epoch quality driver is
+        # the once-per-epoch X/Y update, not the half-pass sweeps, so
+        # more sweeps per batch stop paying off early; T=64 is the
+        # default.
         self.inner_steps = 64
 
         if parameters:
@@ -204,8 +200,7 @@ class FNRecommender(MFRecommender):
         '''Sorted-window alternating tier
         (``ops.fn.make_fn_alternating_epoch``): profile aggregation,
         both half-passes and the X/Y steps are all scatter-free window
-        work riding the fused Pallas kernels on TPU.'''
-        import jax
+        work (the half-passes run the Pallas kernel on a GPU).'''
         self.compute_overall_avg()
         k = self.dimensionality
         st = self._init_or_resume(initialize_model)
@@ -233,8 +228,7 @@ class FNRecommender(MFRecommender):
             K_x=self.K_items, K_y=self.K_users,
             lo=self.min_rating, hi=self.max_rating,
             chunk=min(8192, self.batch_size),
-            inner_steps=self.inner_steps,
-            use_pallas_full=jax.default_backend() != 'cpu')
+            inner_steps=self.inner_steps)
         driver = ConvergenceDriver(1, self.nbr_epochs, self.min_improvement)
 
         def one_epoch(s):
@@ -262,7 +256,7 @@ class FNRecommender(MFRecommender):
                                    verbose=False, n_devices=None):
         '''FN over the device mesh (``parallel.fn_sharded``): the six
         windowed phases of the single-chip tier, users/items
-        range-partitioned like the other sharded engines, 5 ICI
+        range-partitioned like the other sharded engines, 5
         all_gathers per epoch (X, Y, Q, P, G+bu).  BEYOND the reference
         (it never implements FN at all).'''
         import jax

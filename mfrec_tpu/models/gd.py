@@ -6,9 +6,9 @@ plus its Cython inner loops (``gd_estimator.pyx``).  Training engines:
 
 * ``engine='auto'`` (default): the benchmarked flagship per substrate —
   ``alternating`` on one device, ``alternating_sharded`` on a mesh.
-* ``engine='alternating'``: the fastest single-chip path — scatter-free
-  sorted-window half-passes (fused Pallas batch kernel, ``inner_steps``
-  in-VMEM gradient sweeps per batch).
+* ``engine='alternating'``: the single-device flagship — scatter-free
+  sorted-window half-passes (``inner_steps`` gradient sweeps per batch;
+  a fused Pallas kernel on a GPU).
 * ``engine='alternating_sharded'`` / ``'alternating_ring'``: the same
   engine over the device mesh (all_gather per factor side vs ppermute
   shard rotation); learned biases ride the sharded bias columns on
@@ -68,8 +68,7 @@ class GDRecommender(MFRecommender):
                         'resilience': 'resilience',
                         'resilience_snapshot_every':
                             'resilience_snapshot_every',
-                        'resilience_dir': 'resilience_dir',
-                        'sharded_pallas_half': 'sharded_pallas_half'}
+                        'resilience_dir': 'resilience_dir'}
 
     _default_predictor_mode = 'dot_plus_one'
 
@@ -92,36 +91,26 @@ class GDRecommender(MFRecommender):
         self.K3 = 0.01
         self.dimensionality = 40
 
-        # 'auto' = the benchmarked flagship per substrate: sorted-window
-        # alternating on one chip, alternating_sharded on a mesh (the
-        # README performance-table engine — r2 verdict: defaults must
-        # match the measured headline, as the reference's default train()
-        # IS its fastest path, gradient_descent.py:545).  batch_size and
-        # inner_steps are the interleaved-A/B-tuned headline values
-        # (W=128/batch=16k/chunk=B/T=64 on the no-grid tloop kernel,
-        # see ARCHITECTURE.md; the T
-        # ladder was climbed r4 by interleaved A/B at each step — T=16
-        # +19% updates/s over 8, T=32 +10.6%, T=64 +5.5% — with
-        # per-epoch RMSE improving monotonically at every step
-        # (0.469 → 0.339 → 0.311 → 0.2996 → 0.2931 on the bench's
-        # planted structure); the tloop kernel's marginal sweep is a
-        # constant ~12.9 µs/batch and T=128 runs +5.9% over T=64
-        # (AB=t128) — the next doubling projects ~+3%.  The sweep
-        # count is tuned JOINTLY with
-        # batch_size/learning_rate: each inner sweep re-iterates the
-        # same resident window, so if you shrink batch_size or raise
-        # learning_rate well past the tuned point, reduce inner_steps
-        # too or the per-window iteration can overshoot).
+        # 'auto' = the flagship per substrate: sorted-window alternating
+        # on one device, alternating_sharded on a mesh (defaults match
+        # the benchmarked path, as the reference's default train() IS
+        # its fastest path, gradient_descent.py:545).  batch_size and
+        # inner_steps are the headline operating point (W=128,
+        # batch=16k, T=128); per-epoch train RMSE improves monotonically
+        # with T on the bench's planted structure.  The sweep count is
+        # tuned JOINTLY with batch_size/learning_rate: each inner sweep
+        # re-iterates the same window, so if you shrink batch_size or
+        # raise learning_rate well past the tuned point, reduce
+        # inner_steps too or the per-window iteration can overshoot.
         self.engine = 'auto'
         self.batch_size = 16384
         self.inner_steps = 128           # alternating: grad iters / batch
-        # The SVD++ (implicit) tier has its OWN sweep-count ladder: its
-        # Y-aggregation phases couple rows across the batch, and unlike
-        # the explicit tier the quality gate CLOSES it — measured r4
-        # (AB=implicit_ladder): T=8 +43.9% rate / RMSE 0.5695, T=16
-        # +28.1% / 0.4436, T=32 +16.4% / 0.3249, but T=64 (+8.9%)
-        # WORSENS RMSE to 0.3613 — the per-window iteration overshoots
-        # the Y coupling.  T=32 is the shipped default.
+        # The SVD++ (implicit) tier has its OWN sweep count: its
+        # Y-aggregation phases couple rows across the batch, and past
+        # T=32 the per-window iteration overshoots the Y coupling
+        # (planted-structure train RMSE 0.5695 / 0.4436 / 0.3249 at
+        # T=8/16/32, then WORSE, 0.3613, at T=64).  T=32 is the shipped
+        # default.
         self.inner_steps_implicit = 32
         # Per-epoch multiplicative learning-rate decay on the
         # alternating engine — explicit AND implicit (SVD++) tiers
@@ -132,16 +121,15 @@ class GDRecommender(MFRecommender):
         # sgd_mf.make_alternating_epoch lr_scale) — a schedule costs no
         # recompiles.  Constant-rate SGD plateaus at its step-noise
         # floor; decay trades early progress for a deeper floor, so it
-        # only pays for quality-hungry runs (see README time-to-quality
-        # notes for the measured trade-off).
+        # only pays for quality-hungry runs.
         self.lr_decay = 1.0
         # Plateau-onset decay (ConvergenceDriver plateau_decay): when the
         # reference stop rule would end training, scale the rate by this
         # factor and continue (until the scale floors, then stop as
         # usual).  The ONLY decay shape that measured a win at ML-10M:
         # constant-to-plateau-then-decay breaks below the constant-rate
-        # trajectory, while decay-from-epoch-0 loses at every target
-        # (bench_logs/r4/ttq_decay_*.log).  1.0 disables (default —
+        # trajectory, while decay-from-epoch-0 loses at every target.
+        # 1.0 disables (default —
         # reference semantics; quality-hungry runs set ~0.9 with a high
         # max_epochs).
         self.lr_plateau_decay = 1.0
@@ -156,7 +144,7 @@ class GDRecommender(MFRecommender):
         # collapses to rank 1 regardless of nbr_features (measured end
         # to end at the ML-10M bench shape: train RMSE stalls at 0.692,
         # a hair under the 0.703 bias floor, vs 0.29 with the symmetry
-        # broken — bench_logs/r4/plateau_e2e_rank1_repro.log).  Same
+        # broken).  Same
         # latent-defect class as the reference's constant WRMF init
         # (models/wrmf.py init_mode notes).  'auto' (default):
         # N(0, feature_init) via self.rng for joint engines, the
@@ -164,12 +152,9 @@ class GDRecommender(MFRecommender):
         # ('funk'/'funk_fused', whose cached estimators also assume it
         # through the trailing term).  'normal'/'constant' force either.
         self.init_mode = 'auto'
-        self.n_slices = 1                # alternating_sharded: DCN slices
-        # Fused Pallas half-pass base INSIDE the sharded tiers'
-        # shard_map (interpret-mode parity pinned on the virtual mesh —
-        # tests/test_round5_fixes.py).  Default off: the swap is
-        # unmeasurable on one chip; flip on real multi-chip hardware.
-        self.sharded_pallas_half = 0
+        # alternating_sharded: rating shards trained in parallel and
+        # parameter-averaged each epoch (the 2-D mesh's outer axis)
+        self.n_slices = 1
 
         # Failure detection / recovery (engine.trainer.ResilientDriver;
         # a subsystem the reference lacks — SURVEY §5).  resilience = max
@@ -246,7 +231,7 @@ class GDRecommender(MFRecommender):
                 # an all-zero init is itself a training fixed point for
                 # joint engines (zero factor gradients with fixed biases)
                 # — the same silent-collapse class init_mode='auto' is
-                # meant to prevent (ADVICE r4)
+                # meant to prevent
                 raise Error(
                     "feature_init must be non-zero for init_mode="
                     "'normal' (an all-zero init freezes joint training; "
@@ -450,19 +435,12 @@ class GDRecommender(MFRecommender):
     # ------------------------------------------------- alternating engine
     def _run_alternating(self, bias_mode, verbose=False):
         '''Scatter-free sorted-window epochs
-        (``ops.sgd_mf.make_alternating_epoch``) — the fastest single-chip
-        path; blockwise-alternating update order.'''
-        # chunk = the whole batch: the r4 interleaved A/B measured the
-        # (T, 1) grid at chunk=B 26% faster than chunk=8192 (one grid
-        # step per sweep, ff never re-streamed) — and the default Pallas
-        # path is now the no-grid tloop kernel, which is whole-batch
-        # resident and ignores chunk entirely (auto gate in
-        # half_pass_batch; grid at chunk=B is the fallback)
+        (``ops.sgd_mf.make_alternating_epoch``) — the single-device
+        flagship; blockwise-alternating update order.'''
+        # chunk = the whole batch (the XLA sweeps' one-hot aggregation)
         chunk = self.batch_size
         lr, lr_bu, lr_bi = self._alt_lrs()
-        # W=128 beat 256 and 64 in interleaved A/B on v5e (ML-10M:
-        # 0.398 vs 0.433/0.401 s per 4-sweep epoch) and converges better
-        # per epoch than wider windows
+        # W=128 converges better per epoch than wider windows
         mw = min(128, max(self.nbr_users, self.nbr_items))
         p_layout, q_layout, W_user, W_item = self._alternating_layouts(mw)
         state = self._state(with_bias=(bias_mode != 'none'))
@@ -472,7 +450,6 @@ class GDRecommender(MFRecommender):
             jnp.pad(state.bu, (0, W_user)),
             jnp.pad(state.bi, (0, W_item)))
         mu = state.mu
-        import jax
 
         def build_epoch():
             return sgd_mf.make_alternating_epoch(
@@ -481,13 +458,8 @@ class GDRecommender(MFRecommender):
                 K_bu=self.K2, K_bi=self.K3, bias_mode=bias_mode,
                 lo_r=self.min_rating, hi_r=self.max_rating, chunk=chunk,
                 inner_steps=self.inner_steps,
-                # Pallas kernels only lower on TPU backends; the bf16
-                # fixed side is the same accepted mixed-precision
-                # deviation as the kernel's bf16 window read (interleaved
-                # A/B: 10% faster at identical planted-structure RMSE).
-                # ff_dtype is only honored when use_pallas_full is true,
-                # so one gate suffices.
-                use_pallas_full=jax.default_backend() != 'cpu',
+                # the kernel gathers a bf16 fixed side (an accepted
+                # mixed-precision deviation; the XLA sweeps read f32)
                 ff_dtype='bfloat16')
 
         decay = float(self.lr_decay)
@@ -586,8 +558,8 @@ class GDRecommender(MFRecommender):
 
         ``ring=True`` (engine='alternating_ring') swaps the all_gather
         for a D-round ppermute shard rotation
-        (``parallel.ring_alternating``) — no read-side replica in HBM,
-        same total ICI bytes.'''
+        (``parallel.ring_alternating``) — no read-side replica in memory,
+        same total bytes moved.'''
         import jax
         from mfrec_tpu.parallel import alternating_sharded as alt
         from mfrec_tpu.parallel.mesh import make_mesh
@@ -654,12 +626,7 @@ class GDRecommender(MFRecommender):
                 K_bu=self.K2, K_bi=self.K3,
                 lo_r=self.min_rating, hi_r=self.max_rating,
                 chunk=min(8192, self.batch_size),
-                inner_steps=self.inner_steps, slice_axis=slice_axis,
-                # gated flag (VERDICT r4 #7): the fused Pallas half-pass
-                # base inside shard_map — interpret-parity tested on the
-                # virtual mesh, default off until real multi-chip
-                # hardware can measure it
-                use_pallas_half=bool(int(self.sharded_pallas_half)))
+                inner_steps=self.inner_steps, slice_axis=slice_axis)
         driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
                                    self.min_improvement)
 
@@ -711,19 +678,12 @@ class GDRecommender(MFRecommender):
                                         0.0)
         nrm_rows = jnp.asarray(nrm)
         mu = state.mu
-        import jax
+        # the fixed side stays f32: bf16 rounding hurts the Y-coupled
+        # convergence
         epoch = sgd_mf.make_alternating_implicit_epoch(
             W_user, W_item, lr, lr,
             self.K, self.K, lo_r=self.min_rating, hi_r=self.max_rating,
-            chunk=chunk, inner_steps=self.inner_steps_implicit,
-            # fused Pallas half-pass base: the r2 negative (XLA faster
-            # at T=4) REVERSED once the tier climbed to T=32 — the
-            # in-VMEM sweeps dominate and the all2d+dot_sum kernel is
-            # ~2x faster per sweep (AB=implicit AB_T=32: 2.5911 vs
-            # 1.8935 s/epoch = +36.8% at identical RMSE 0.3136).
-            # ff_dtype stays f32: bf16 rounding hurts the Y-coupled
-            # convergence (ROADMAP r2 measurement, unchanged)
-            use_pallas_full=jax.default_backend() != 'cpu')
+            chunk=chunk, inner_steps=self.inner_steps_implicit)
         decay = float(self.lr_decay)
         if not (0.0 < decay <= 1.0):
             raise Error('lr_decay must be in (0, 1] (got %r)'
@@ -768,7 +728,7 @@ class GDRecommender(MFRecommender):
         '''SVD++ over the device mesh (``parallel.implicit_sharded``):
         the five windowed phases of the single-chip implicit tier, with
         users/items range-partitioned like the plain sharded engine and
-        4 ICI all_gathers per epoch (Y, Q, Peff, G).'''
+        4 all_gathers per epoch (Y, Q, Peff, G).'''
         import jax
         from mfrec_tpu.parallel import alternating_sharded as alt
         from mfrec_tpu.parallel import implicit_sharded as imp
@@ -805,8 +765,7 @@ class GDRecommender(MFRecommender):
             mesh, W, lr=lr, lr_y=lr, K=self.K, K_y=self.K,
             lo_r=self.min_rating, hi_r=self.max_rating,
             chunk=min(8192, self.batch_size),
-            inner_steps=self.inner_steps_implicit,
-            use_pallas_half=bool(int(self.sharded_pallas_half)))
+            inner_steps=self.inner_steps_implicit)
         p_dev = tuple(jnp.asarray(x) for x in p_layout)
         q_dev = tuple(jnp.asarray(x) for x in q_layout)
         driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
@@ -834,7 +793,7 @@ class GDRecommender(MFRecommender):
     def _run_dsgd(self, bias_mode, verbose=False, n_devices=None):
         '''Ring-DSGD training over all visible devices
         (``mfrec_tpu.parallel.dsgd``): user-sharded P, item shards rotating
-        over ICI.  Used when engine='dsgd'; works on a 1-device mesh too.'''
+        between devices.  Used when engine='dsgd'; works on a 1-device mesh too.'''
         import jax
         from mfrec_tpu.parallel import dsgd as dsgd_mod
         from mfrec_tpu.parallel.mesh import make_mesh

@@ -102,8 +102,8 @@ class KNNSVDRecommender(MFRecommender):
         return out
 
     def _score_unrated_host(self, user_index, predictor):
-        '''One ``_knn_user_votes`` pass over the whole catalog (VERDICT
-        r4 #4) — numerically equal to the per-item vote loop: failed
+        '''One ``_knn_user_votes`` pass over the whole catalog —
+        numerically equal to the per-item vote loop: failed
         votes (< k_min raters) score 0.0 exactly as the loop's caught
         ``Error`` does.'''
         if predictor != 'predict':

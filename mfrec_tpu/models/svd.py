@@ -70,7 +70,7 @@ class SVDRecommender(MFRecommender):
 
     def _score_unrated_host(self, user_index, predictor):
         '''All items at once: (r_u @ V) @ V^T is one [k] projection plus
-        one [I, k] @ [k] matvec (VERDICT r4 #4) — numerically the same
+        one [I, k] @ [k] matvec — numerically the same
         arithmetic as the per-item ``predict`` loop.'''
         if predictor != 'predict':
             return None

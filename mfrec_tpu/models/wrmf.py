@@ -32,7 +32,6 @@ class WRMFRecommender(MFRecommender):
                         'cg_steps': 'cg_steps',
                         'cg_warm_steps': 'cg_warm_steps',
                         'cg_warmup_epochs': 'cg_warmup_epochs',
-                        'pcg_impl': 'pcg_impl',
                         'engine': 'engine',
                         'init_mode': 'init_mode'}
 
@@ -53,11 +52,11 @@ class WRMFRecommender(MFRecommender):
         # alpha>0 switches to rating-scaled confidence c_ui = 1 + alpha*r.
         self.c_pos = 1.0
         self.alpha = 0.0
-        # 'bfloat16' runs the rank-L Gram corrections at bf16 MXU rate
-        # with f32 accumulation (~2x on TPU; the k x k solves stay f32);
+        # 'bfloat16' runs the rank-L Gram corrections with bf16 inputs
+        # and f32 accumulation (the k x k solves stay f32);
         # None keeps everything f32 (the oracle-parity setting).
         self.gram_dtype = None
-        # solver='cg': warm-started matrix-free CG half-sweeps (fast TPU
+        # solver='cg': warm-started matrix-free CG half-sweeps (fast
         # path, ~same fixed point); 'exact' = batched Cholesky (oracle
         # parity).  cg_steps: CG iterations per half-sweep.
         self.solver = 'exact'
@@ -66,12 +65,6 @@ class WRMFRecommender(MFRecommender):
         # half-sweep (warm starts make late epochs cheap; None = no drop).
         self.cg_warm_steps = None
         self.cg_warmup_epochs = 2
-        # pcg_impl: 'auto' (default) runs the CG iterations in the
-        # VMEM-resident-M blocked Pallas kernel (ops/pallas_cg.py) on
-        # TPU — 12.6% faster than the XLA loop that re-reads [R, k, k]
-        # from HBM every step — and the XLA loop on CPU; 'pallas'/'xla'
-        # force either.
-        self.pcg_impl = 'auto'
         # engine='auto': single-chip nnz-bucket ALS on one device, the
         # mesh-sharded epoch (parallel.als_sharded) on >1; 'als' /
         # 'als_sharded' force either path.
@@ -149,7 +142,6 @@ class WRMFRecommender(MFRecommender):
             cg_warm_steps=(None if self.cg_warm_steps is None
                            else int(self.cg_warm_steps)),
             cg_warmup_epochs=int(self.cg_warmup_epochs),
-            pcg_impl=self.pcg_impl,
             callback=(lambda e, P, Q: self.logger.info('Epoch : %d', e))
             if verbose else None)
         self.P = np.array(P)
@@ -178,14 +170,14 @@ class WRMFRecommender(MFRecommender):
             mesh, c_pos=float(self.c_pos), alpha=float(self.alpha),
             reg=float(self.K), solver=solver, cg_steps=int(self.cg_steps),
             gram_dtype=jnp.bfloat16 if self.gram_dtype == 'bfloat16'
-            else None, pcg_impl=self.pcg_impl)
+            else None)
         warm_epoch = None
         if solver == 'cg' and self.cg_warm_steps is not None \
                 and int(self.cg_warm_steps) != int(self.cg_steps):
             warm_epoch = als_sharded.make_sharded_als_epoch(
                 mesh, c_pos=float(self.c_pos), alpha=float(self.alpha),
                 reg=float(self.K), solver='cg',
-                cg_steps=int(self.cg_warm_steps), pcg_impl=self.pcg_impl)
+                cg_steps=int(self.cg_warm_steps))
         Ru, Ri = u_idx.shape[0], i_idx.shape[0]
         P = jnp.asarray(np.pad(np.asarray(self.P, np.float32),
                                ((0, Ru - self.nbr_users), (0, 0))))

@@ -1,28 +1,35 @@
 '''
-Pallas TPU kernel: a fully fused alternating-SGD batch step.
+Pallas kernel (Triton route, for NVIDIA GPUs): a whole sorted-window
+half-pass of the alternating engine in one launch.
 
-Given one sorted-window batch, everything between the fixed-side row
-gather and the window write-back happens in VMEM:
+During a half-pass the fixed side is frozen, and the sorted-window layout
+(``sgd_mf.sorted_pass_layout``) puts each factor row's ratings in one
+contiguous run per batch, padding last with mask 0.  A row therefore
+depends only on its own runs: batch b gives it T sweeps over its run in
+b, and a row split across consecutive batches carries its value from one
+batch to the next.  Rows never interact.  So the kernel runs ONE PROGRAM
+PER FACTOR ROW for the whole half-pass (no sequential grid over
+batches).  A program
 
-    fu    = onehot @ window            (MXU — replaces the HBM fu gather)
-    pred  = clamp(mu + fu.ff)          (VPU)
-    g     = err*ff - reg*fu            (VPU)
-    acc  += onehot^T @ [g | m]         (MXU — gradient sums + counts)
-    out   = window + lr * acc/cnt      (VPU, last chunk)
+  * loads its row in float32 (k padded to a power of two and masked),
+  * for each batch holding a run of it, in batch order, walks the run in
+    power-of-two tiles, gathering the fixed-side rows by index straight
+    from the fixed factor matrix (bfloat16 when the caller casts it — the
+    accepted mixed-precision deviation of the alternating tier), and
+    runs all T sweeps with the row held in registers,
+  * writes the row back once, with its own SSE (the sweep-0 residual of
+    each of its runs).
 
-vs. the XLA pipeline which round-trips fu [B,k], g [B,k] and the one-hot
-tile through HBM per batch.  XLA keeps the ff gather (random rows from
-the full fixed side) and the dynamic window slice/unslice around the
-kernel call.
+XLA sums the per-row SSE partials, so no atomics are needed and the sum
+is deterministic.  The run offsets are computed outside the kernel.
 
-Numerics (accepted deviation): the one-hot fu gather reads the window
-in bfloat16 (MXU-rate matmul; an f32 window operand would run the MXU at
-1/4-1/8 rate), so predictions/gradients see bf16-rounded factor values
-while the *accumulated* window update stays float32 — standard
-mixed-precision SGD practice.  The XLA fallback gathers fu in f32.  The
-interpret-mode parity test (tests/test_pallas_half_pass.py) exercises
-exactly the bf16 path against a float64 numpy twin with bf16 tolerances,
-so CI covers the TPU path's numerics.
+The math is that of the XLA sweeps in ``sgd_mf.window_half_pass_xla``:
+prediction ``1 + dot`` (``bias_none``) or ``mu + dot`` with optional
+clamping, or the logistic link ``lo + sigmoid(dot) * (hi - lo)``; per
+sweep the row steps by ``lrv * (sum_err_ff / cnt - regv * row)`` with
+``row_mean`` (``sum_err_ff - regv * row * cnt`` without).  The kernel
+accumulates the error term in float32 (the XLA path rounds it to
+bfloat16 before its one-hot matmul), so the two agree to bf16 rounding.
 '''
 from __future__ import annotations
 
@@ -30,889 +37,145 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+TILE = 64            # batch slots per tile (power of two)
+NUM_WARPS = 4
 
 
-def _pred_dot2d(fu, ff, k, dot_sum):
-    '''k-lane prediction dot for the all-2D chain: [ch, k] -> [ch, 1].
+def _kernel(T, tile, B, W, link, clamp_pred, lo_r, hi_r, row_mean,
+            bias_none, mu_ref, fupd_ref, ffix_ref, fix_ref, r_ref, lo_ref,
+            start_ref, len_ref, first_ref, nseg_ref, lrv_ref, regv_ref,
+            out_ref, sse_ref):
+    g = pl.program_id(0)
+    kdim = ffix_ref.shape[1]
+    cols = jnp.arange(pl.next_power_of_2(kdim))
+    cmask = cols < kdim
+    offs = jnp.arange(tile)
+    row = plgpu.load(fupd_ref.at[g * kdim + cols], mask=cmask, other=0.0)
+    lrv = plgpu.load(lrv_ref.at[cols], mask=cmask, other=0.0)
+    regv = plgpu.load(regv_ref.at[cols], mask=cmask, other=0.0)
+    base = 1.0 if bias_none else mu_ref[0]
+    rng_w = hi_r - lo_r
 
-    dot_sum=True: f32 keepdims lane-reduction (fast when a row fits one
-    128-lane vreg).  dot_sum='split': reduce each 128-lane group with
-    its OWN single-vreg keepdims-sum and add the partials — for k just
-    over a vreg boundary (Netflix rank 128 + 2 aug bias cols = 130
-    lanes) the naive cross-vreg reduction loses to the MXU matvec
-    (interleaved A/B: -6.4%), but per-group reductions avoid the
-    masked cross-vreg tree while keeping f32-exact products.
-    dot_sum=False: bf16 ones-matvec on the MXU (bf16-rounded products,
-    f32 accumulation — accepted deviation, see module docstring).'''
-    if dot_sum == 'split':
-        p = fu * ff
-        dot = p[:, :min(128, k)].sum(axis=1, keepdims=True)
-        for s in range(128, k, 128):
-            dot = dot + p[:, s:min(s + 128, k)].sum(axis=1, keepdims=True)
-        return dot
-    if dot_sum:
-        # keepdims lane-reduction: stays 2D ([ch,k] -> [ch,1], no
-        # squeeze), f32-exact products, and skips the MXU N=1 tile
-        # padding of the ones-matvec (probe: 15.0 vs 19.3 us/sweep)
-        return (fu * ff).sum(axis=1, keepdims=True)
-    # the k-dim reduction rides the MXU as a bf16 ones-matvec and the
-    # result STAYS [ch, 1] (no squeeze)
-    return jax.lax.dot_general(
-        (fu * ff).astype(jnp.bfloat16), jnp.ones((k, 1), jnp.bfloat16),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
+    def run(j, carry):
+        '''T sweeps over this row's run in batch ``first + j``.'''
+        row, sse_row = carry
+        b = first_ref[g] + j
+        bw = b * W + (g - lo_ref[b])
+        start = b * B + start_ref[bw]
+        n = len_ref[bw]
+        cnt = n.astype(jnp.float32)
 
+        def sweep(t, carry):
+            row, sse0 = carry
 
-def _kernel(W, lo_r, hi_r, clamp_pred, row_mean, bias_none, cache_onehot,
-            link, all2d, dot_sum, mu_ref, win_ref, ff_ref, r_ref, m_ref,
-            kl_ref, lrv_ref, regv_ref, out_ref, sse_ref, acc_ref, win_scr,
-            oh_scr, cnt_scr):
-    t = pl.program_id(0)          # inner gradient iteration
-    j = pl.program_id(1)          # ff chunk
-    nt = pl.num_programs(0)
-    nj = pl.num_programs(1)
+            def tile_step(i, acc_sse):
+                acc, sse = acc_sse
+                slots = start + i * tile + offs
+                smask = slots < start + n
+                fix = plgpu.load(fix_ref.at[slots], mask=smask, other=0)
+                r = plgpu.load(r_ref.at[slots], mask=smask, other=0.0)
+                ff = plgpu.load(ffix_ref.at[fix[:, None], cols[None, :]],
+                                mask=smask[:, None] & cmask[None, :],
+                                other=0.0).astype(jnp.float32)
+                dot = (ff * row[None, :]).sum(axis=1)
+                if link == 'logistic':
+                    sig = 1.0 / (1.0 + jnp.exp(-dot))
+                    err = jnp.where(smask, r - (lo_r + sig * rng_w), 0.0)
+                    eff = err * sig * (1.0 - sig) * rng_w
+                else:
+                    pred = base + dot
+                    if clamp_pred:
+                        pred = jnp.minimum(jnp.maximum(pred, lo_r), hi_r)
+                    err = jnp.where(smask, r - pred, 0.0)
+                    eff = err
+                acc = acc + (eff[:, None] * ff).sum(axis=0)
+                return acc, sse + (err * err).sum()
 
-    @pl.when((t == 0) & (j == 0))
-    def _():
-        win_scr[:] = win_ref[:]
-        sse_ref[0, 0] = 0.0
-        cnt_scr[:] = jnp.zeros_like(cnt_scr)
+            acc, sse = lax.fori_loop(
+                0, (n + tile - 1) // tile, tile_step,
+                (jnp.zeros(cols.shape, jnp.float32), jnp.float32(0.0)))
+            if row_mean:
+                step = acc / cnt - regv * row
+            else:
+                step = acc - regv * row * cnt
+            return row + lrv * step, jnp.where(t == 0, sse, sse0)
 
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
+        row, sse0 = lax.fori_loop(0, T, sweep, (row, jnp.float32(0.0)))
+        return row, sse_row + sse0
 
-    ff = ff_ref[:].astype(jnp.float32)                 # [ch, k]
-    # all2d: r/m/kl arrive as [ch, 1] COLUMNS and every per-sample
-    # intermediate stays 2D.  [ch] 1D vectors are lane-major while
-    # [ch, k] arrays are sublane-major on dim 0, so each 1D<->2D
-    # broadcast/squeeze in the per-sweep chain is a vreg relayout —
-    # deletion profiling (tools/kernel_probe.py) measured the relayouts
-    # at ~19 of the 39 us marginal sweep; the all-2D chain halves it.
-    kl = kl_ref[:]                                     # [ch, 1] | [ch]
-    m = m_ref[:]
-    r = r_ref[:]
-    ch = ff.shape[0]
-    k = win_scr.shape[1]
-    kl2 = kl if all2d else kl[:, None]
-    m2 = m if all2d else m[:, None]
-    if cache_onehot:
-        # the one-hot tile is t-invariant: build once per chunk (t == 0)
-        # into a persistent scratch slab, re-read on later sweeps
-        @pl.when(t == 0)
-        def _():
-            oh_scr[pl.ds(j * ch, ch), :] = (
-                kl2 == jax.lax.broadcasted_iota(
-                    jnp.int32, (ch, W), 1)).astype(jnp.bfloat16)
-        onehot = oh_scr[pl.ds(j * ch, ch), :]
-    else:
-        onehot = (kl2 == jax.lax.broadcasted_iota(
-            jnp.int32, (ch, W), 1)).astype(jnp.bfloat16)
-
-    @pl.when(t == 0)
-    def _():
-        # per-window-row rating counts are t-invariant: one [W] matvec
-        # per chunk on the first sweep (0/1 inputs: the bf16 products are
-        # exact, accumulation is f32)
-        cnt_scr[:] += jax.lax.dot_general(
-            onehot, m2.astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)        # [W, 1]
-
-    fu = jax.lax.dot_general(
-        onehot, win_scr[:].astype(jnp.bfloat16),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)            # [ch, k]
-    if all2d:
-        dot = _pred_dot2d(fu, ff, k, dot_sum)          # [ch, 1]
-    else:
-        dot = (fu * ff).sum(-1)                        # [ch]
-    if link == 'logistic':
-        # kernel MF (kmf_train.pyx:158-165): s = dot (aug bias cols
-        # included); pred = lo + sigmoid(s)*range; gradient picks up
-        # sigmoid'(s)*range — same math as the XLA tier
-        rng_w = hi_r - lo_r
-        sig = jax.nn.sigmoid(dot)
-        pred = lo_r + sig * rng_w
-        err = (r - pred) * m
-        eff = err * sig * (1.0 - sig) * rng_w
-    else:
-        pred = (1.0 + dot) if bias_none else (mu_ref[0, 0] + dot)
-        if clamp_pred:
-            pred = jnp.clip(pred, lo_r, hi_r)
-        err = (r - pred) * m
-        eff = err
-
-    @pl.when(t == 0)      # epoch RMSE = pre-update residual, like XLA path
-    def _():
-        sse_ref[0, 0] += (err * err).sum()
-
-    # Aggregate only the error term.  The regularization term needs no
-    # per-rating matmul: every rating maps to exactly ONE window row
-    # (fu_b == win[kl_b]), so onehot^T diag(m) onehot is diagonal with
-    # the counts — sum_b m_b regv*fu_b lands on row w as
-    # regv * win_w * cnt_w, applied once at the window update below.
-    eff2 = eff if all2d else eff[:, None]
-    acc_ref[:] += jax.lax.dot_general(
-        onehot, (eff2 * ff).astype(jnp.bfloat16),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)            # [W, k]
-
-    @pl.when(j == nj - 1)
-    def _():
-        cnt = cnt_scr[:]
-        alive = (cnt > 0.0).astype(jnp.float32)
-        reg = regv_ref[:][None, :] * win_scr[:]
-        if row_mean:
-            # (acc - reg*cnt)/cnt == acc/cnt - reg (rows with cnt=0 get 0)
-            gsum = acc_ref[:] / jnp.maximum(cnt, 1.0) - reg * alive
-        else:
-            gsum = acc_ref[:] - reg * cnt
-        win_scr[:] = win_scr[:] + lrv_ref[:][None, :] * gsum
-
-    @pl.when((t == nt - 1) & (j == nj - 1))
-    def _():
-        out_ref[:] = win_scr[:]
+    row, sse_row = lax.fori_loop(0, nseg_ref[g], run,
+                                 (row, jnp.float32(0.0)))
+    plgpu.store(out_ref.at[g * kdim + cols], row, mask=cmask)
+    sse_ref[g] = sse_row
 
 
-def _kernel_resident(W, nj, lo_r, hi_r, clamp_pred, row_mean, bias_none,
-                     link, all2d, dot_sum, mu_ref, win_ref, ff_ref, r_ref,
-                     m_ref, kl_ref, lrv_ref, regv_ref, out_ref, sse_ref,
-                     win_scr, oh_scr):
-    '''Whole-batch-resident variant: the full ff/r/m/kl tensors live in
-    VMEM for the batch (constant block index: one DMA per pallas_call,
-    not one per (t, chunk) grid step), and the chunk loop is unrolled
-    inside the kernel.  Cuts the marginal inner-iteration HBM traffic
-    from ~|ff| per iteration to zero — the inner sweeps become
-    MXU-bound.  The one-hot tile is invariant across iterations, so it
-    is built ONCE (t == 0) into a VMEM scratch and re-read by later
-    sweeps — the marginal sweep loses the [ch, W] compare+cast VPU work
-    (ROADMAP r2: the sweep floor is onehot build + elementwise).'''
-    t = pl.program_id(0)
-    nt = pl.num_programs(0)
-
-    @pl.when(t == 0)
-    def _():
-        win_scr[:] = win_ref[:]
-        sse_ref[0, 0] = 0.0
-
-    B, k = ff_ref.shape
-    ch = B // nj
-    winb = win_scr[:].astype(jnp.bfloat16)
-    acc = jnp.zeros((W, k), jnp.float32)
-    cnt = jnp.zeros((W, 1), jnp.float32)
-    err2 = jnp.zeros((), jnp.float32)
-    for j in range(nj):
-        ff = ff_ref[j * ch:(j + 1) * ch, :].astype(jnp.float32)
-        kl = kl_ref[j * ch:(j + 1) * ch]    # [ch, 1] if all2d else [ch]
-        m = m_ref[j * ch:(j + 1) * ch]
-        r = r_ref[j * ch:(j + 1) * ch]
-        kl2 = kl if all2d else kl[:, None]
-        m2 = m if all2d else m[:, None]
-
-        @pl.when(t == 0)
-        def _(j=j, kl2=kl2):
-            oh_scr[j * ch:(j + 1) * ch, :] = (
-                kl2 == jax.lax.broadcasted_iota(
-                    jnp.int32, (ch, W), 1)).astype(jnp.bfloat16)
-
-        onehot = oh_scr[j * ch:(j + 1) * ch, :]
-        # t-invariant counts recomputed per sweep here (cheap [W] matvec;
-        # the resident variant has no persistent cnt scratch)
-        cnt = cnt + jax.lax.dot_general(
-            onehot, m2.astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        fu = jax.lax.dot_general(
-            onehot, winb,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        if all2d:
-            dot = _pred_dot2d(fu, ff, k, dot_sum)        # see _kernel
-        else:
-            dot = (fu * ff).sum(-1)
-        if link == 'logistic':
-            rng_w = hi_r - lo_r
-            sig = jax.nn.sigmoid(dot)
-            pred = lo_r + sig * rng_w
-            err = (r - pred) * m
-            eff = err * sig * (1.0 - sig) * rng_w
-        else:
-            pred = (1.0 + dot) if bias_none else (mu_ref[0, 0] + dot)
-            if clamp_pred:
-                pred = jnp.clip(pred, lo_r, hi_r)
-            err = (r - pred) * m
-            eff = err
-        err2 = err2 + (err * err).sum()
-        # error term only; the diagonal-regularization identity (see
-        # _kernel) folds the reg term into the window update below
-        eff2 = eff if all2d else eff[:, None]
-        acc = acc + jax.lax.dot_general(
-            onehot, (eff2 * ff).astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-    @pl.when(t == 0)      # epoch RMSE = pre-update residual
-    def _():
-        sse_ref[0, 0] = err2
-
-    alive = (cnt > 0.0).astype(jnp.float32)
-    reg = regv_ref[:][None, :] * win_scr[:]
-    if row_mean:
-        gsum = acc / jnp.maximum(cnt, 1.0) - reg * alive
-    else:
-        gsum = acc - reg * cnt
-    win_scr[:] = win_scr[:] + lrv_ref[:][None, :] * gsum
-
-    @pl.when(t == nt - 1)
-    def _():
-        out_ref[:] = win_scr[:]
+def run_offsets(kl, m, W):
+    '''Start and length of each window row's run in every batch of a
+    sorted-window layout ([nb, B]): valid slots (m > 0) come first,
+    grouped by window-local row id ``kl`` in ascending order; masked
+    slots belong to no run.  Returns ([nb, W], [nb, W]) int32.'''
+    klm = jnp.where(m > 0, kl, W).astype(jnp.int32)
+    bounds = jax.vmap(lambda k: jnp.searchsorted(
+        k, jnp.arange(W + 1, dtype=jnp.int32), side='left'))(klm)
+    bounds = bounds.astype(jnp.int32)
+    return bounds[:, :W], bounds[:, 1:] - bounds[:, :W]
 
 
-def _kernel_tloop(W, T, lo_r, hi_r, clamp_pred, row_mean, bias_none,
-                  link, dot_sum, mu_ref, win_ref, ff_ref, r_ref, m_ref,
-                  kl_ref, lrv_ref, regv_ref, out_ref, sse_ref, oh_scr,
-                  cnt_scr):
-    '''Single-invocation variant (no pallas grid at all): the T inner
-    sweeps run as an in-kernel ``fori_loop`` against the VMEM-resident
-    batch.  The (T, chunks) grid pays a Mosaic grid-step transition per
-    sweep (~3-5 us — the gap between the in-kernel sweep cost and the
-    epoch-level marginal); here there are zero grid steps, so the
-    marginal sweep is exactly the loop body.  all-2D chain only
-    (r/m/kl arrive [B, 1]); onehot + counts are built once before the
-    loop, the window accumulates in ``out_ref``.  Numerics identical to
-    ``_kernel`` at chunk=B.'''
-    ff = ff_ref[:].astype(jnp.float32)                 # [B, k]
-    r = r_ref[:]                                       # [B, 1]
-    m = m_ref[:]
-    kl2 = kl_ref[:]
-    B = ff.shape[0]
-    k = win_ref.shape[1]
-    lrv = lrv_ref[:][None, :]
-    regv = regv_ref[:][None, :]
-    oh_scr[:] = (kl2 == jax.lax.broadcasted_iota(
-        jnp.int32, (B, W), 1)).astype(jnp.bfloat16)
-    cnt_scr[:] = jax.lax.dot_general(
-        oh_scr[:], m.astype(jnp.bfloat16),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)            # [W, 1]
-    out_ref[:] = win_ref[:]
-
-    def sweep(t, _):
-        onehot = oh_scr[:]
-        win = out_ref[:]
-        fu = jax.lax.dot_general(
-            onehot, win.astype(jnp.bfloat16),
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)        # [B, k]
-        dot = _pred_dot2d(fu, ff, k, dot_sum)          # [B, 1]
-        if link == 'logistic':
-            rng_w = hi_r - lo_r
-            sig = jax.nn.sigmoid(dot)
-            pred = lo_r + sig * rng_w
-            err = (r - pred) * m
-            eff = err * sig * (1.0 - sig) * rng_w
-        else:
-            pred = (1.0 + dot) if bias_none else (mu_ref[0, 0] + dot)
-            if clamp_pred:
-                pred = jnp.clip(pred, lo_r, hi_r)
-            err = (r - pred) * m
-            eff = err
-
-        @pl.when(t == 0)      # epoch RMSE = pre-update residual
-        def _():
-            sse_ref[0, 0] = (err * err).sum()
-
-        # error term only — the diagonal-regularization identity (see
-        # _kernel) folds the reg term into the window update
-        acc = jax.lax.dot_general(
-            onehot, (eff * ff).astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)        # [W, k]
-        cnt = cnt_scr[:]
-        alive = (cnt > 0.0).astype(jnp.float32)
-        reg = regv * win
-        if row_mean:
-            gsum = acc / jnp.maximum(cnt, 1.0) - reg * alive
-        else:
-            gsum = acc - reg * cnt
-        out_ref[:] = win + lrv * gsum
-        return 0
-
-    jax.lax.fori_loop(0, T, sweep, 0)
+def row_runs(lo, lens, n_rows):
+    '''For every factor row: the first batch holding a run of it and the
+    number of (consecutive) batches that do.'''
+    nb, W = lens.shape
+    rows = (lo[:, None] + jnp.arange(W, dtype=lo.dtype)[None, :]).ravel()
+    has = (lens > 0).ravel()
+    b = jnp.broadcast_to(jnp.arange(nb, dtype=jnp.int32)[:, None],
+                         (nb, W)).ravel()
+    first = jnp.full((n_rows,), nb, jnp.int32).at[rows].min(
+        jnp.where(has, b, nb))
+    nseg = jnp.zeros((n_rows,), jnp.int32).at[rows].add(
+        has.astype(jnp.int32))
+    return jnp.where(nseg > 0, first, 0), nseg
 
 
-def tloop_auto(B, k, W, all2d=True, resident=False):
-    '''Auto-gate for the no-grid in-kernel-T (tloop) variant: on when the
-    whole batch fits comfortably in VMEM — measured +38% over the (T, 1)
-    grid at the headline shape (AB=t64tloop; numerics bit-identical).
-    The estimate counts the resident inputs (bf16 ff + onehot), the f32
-    ff/fu/g per-sweep values the compiler keeps live, AND the three
-    [B, 1] data columns at their PHYSICAL size: (8, 128) tiling pads each
-    to [B, 128] — 512 B/row each, measured as 16 MB-per-column VMEM
-    allocations at B=32k (the W=256/B=32k implicit shape OOMs without
-    this term; the grid path double-buffers per-chunk slices instead and
-    stays viable there).'''
-    est = B * (3 * 512 + 14 * k + 2 * W)
-    return bool(all2d) and not resident and est < 64 * 1024 * 1024
+@functools.partial(jax.jit, static_argnames=(
+    'W', 'inner_steps', 'link', 'clamp_pred', 'lo_r', 'hi_r', 'row_mean',
+    'bias_none', 'tile', 'num_warps', 'interpret'))
+def half_pass(F_upd, F_fix, fix, r, m, kl, lo, lrv, regv, mu, *, W,
+              inner_steps=1, link='identity', clamp_pred=True, lo_r=1.0,
+              hi_r=5.0, row_mean=True, bias_none=False, tile=TILE,
+              num_warps=NUM_WARPS, interpret=False):
+    '''One sorted-window half-pass, T = ``inner_steps`` sweeps per batch.
 
-
-@functools.partial(jax.jit, static_argnames=('W', 'chunk', 'clamp_pred',
-                                             'lo_r', 'hi_r', 'row_mean',
-                                             'bias_none', 'interpret',
-                                             'inner_steps', 'resident',
-                                             'cache_onehot', 'link',
-                                             'all2d', 'dot_sum', 'tloop'))
-def half_pass_batch(window, ff, r, m, kl, lrv, regv, mu, W, chunk=4096,
-                    clamp_pred=True, lo_r=1.0, hi_r=5.0, row_mean=True,
-                    bias_none=False, interpret=False, inner_steps=1,
-                    resident=False, cache_onehot=False, link='identity',
-                    all2d=False, dot_sum=False, tloop=None):
-    '''One fused batch step.  window [W, k]; ff [B, k] pre-gathered fixed
-    rows; kl [B] window-local updated-row ids (masked rows may point
-    anywhere valid — their gradients are zero); lrv/regv [k] per-column
-    learning rates / regularization.  ``inner_steps``: gradient
-    iterations against the VMEM-resident window (ff chunks re-stream per
-    iteration; the expensive HBM row gather outside is done once).
-    ``resident=True``: additionally pin the whole batch (ff/r/m/kl) in
-    VMEM across iterations — one DMA per batch instead of one per
-    (iteration, chunk); the chunk loop unrolls inside the kernel
-    (``_kernel_resident``).  Identical numerics to the chunked grid.
-    ``all2d=True``: feed r/m/kl as [B, 1] columns and keep every
-    per-sample intermediate 2D inside the kernel — eliminates the
-    1D<->2D vreg relayouts that dominate the marginal sweep (measured
-    39 -> 20 us/batch, tools/kernel_probe.py); the k-dim prediction dot
-    becomes a bf16 ones-matvec on the MXU (bf16-rounded products,
-    f32 accumulation — accepted deviation, see module docstring).
-    Returns (window_out [W, k], sse of the FIRST iteration's residual).'''
-    B, k = ff.shape
-    ch = min(chunk, B)
-    if B % ch != 0:
-        raise ValueError('batch %d not a multiple of chunk %d' % (B, ch))
-    mu_arr = jnp.full((1, 1), mu, jnp.float32)
-    if tloop is None:
-        tloop = tloop_auto(B, k, W, all2d=all2d, resident=resident)
-    if tloop:
-        # no pallas grid at all: T sweeps via in-kernel fori_loop over
-        # the VMEM-resident batch (see _kernel_tloop)
-        if not all2d:
-            raise ValueError('tloop requires the all-2D chain')
-        if resident:
-            raise ValueError('tloop=True is incompatible with '
-                             'resident=True (the tloop kernel is already '
-                             'whole-batch VMEM-resident); pass tloop=None '
-                             'to auto-gate or drop resident')
-        kernel = functools.partial(_kernel_tloop, int(W),
-                                   int(inner_steps), lo_r, hi_r,
-                                   bool(clamp_pred), bool(row_mean),
-                                   bool(bias_none), link, dot_sum)
-        r, m, kl = r[:, None], m[:, None], kl[:, None]
-        vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-        out, sse = pl.pallas_call(
-            kernel,
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),      # mu
-                vm(), vm(), vm(), vm(), vm(),               # win ff r m kl
-                vm(), vm(),                                 # lrv regv
-            ],
-            out_specs=(
-                vm(),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((W, k), jnp.float32),
-                jax.ShapeDtypeStruct((1, 1), jnp.float32),
-            ),
-            scratch_shapes=[pltpu.VMEM((B, W), jnp.bfloat16),  # onehot
-                            pltpu.VMEM((W, 1), jnp.float32)],  # counts
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024),
-            interpret=interpret,
-        )(mu_arr, window, ff, r, m, kl, lrv, regv)
-        return out, sse[0, 0]
-    if resident:
-        kernel = functools.partial(_kernel_resident, int(W), B // ch,
-                                   lo_r, hi_r, bool(clamp_pred),
-                                   bool(row_mean), bool(bias_none), link,
-                                   bool(all2d), dot_sum)
-        if all2d:
-            r, m, kl = r[:, None], m[:, None], kl[:, None]
-            colr = lambda: pl.BlockSpec((B, 1), lambda t: (0, 0),
-                                        memory_space=pltpu.VMEM)
-        else:
-            colr = lambda: pl.BlockSpec((B,), lambda t: (0,),
-                                        memory_space=pltpu.VMEM)
-        out, sse = pl.pallas_call(
-            kernel,
-            grid=(int(inner_steps),),
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda t: (0, 0),
-                             memory_space=pltpu.SMEM),      # mu
-                pl.BlockSpec((W, k), lambda t: (0, 0),
-                             memory_space=pltpu.VMEM),      # window
-                pl.BlockSpec((B, k), lambda t: (0, 0),
-                             memory_space=pltpu.VMEM),      # ff (whole)
-                colr(),                                     # r
-                colr(),                                     # m
-                colr(),                                     # kl
-                pl.BlockSpec((k,), lambda t: (0,),
-                             memory_space=pltpu.VMEM),      # lrv
-                pl.BlockSpec((k,), lambda t: (0,),
-                             memory_space=pltpu.VMEM),      # regv
-            ],
-            out_specs=(
-                pl.BlockSpec((W, k), lambda t: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1), lambda t: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((W, k), jnp.float32),
-                jax.ShapeDtypeStruct((1, 1), jnp.float32),
-            ),
-            scratch_shapes=[pltpu.VMEM((W, k), jnp.float32),
-                            pltpu.VMEM((B, W), jnp.bfloat16)],
-            # the unrolled chunk loop keeps each iteration's onehot/fu/g
-            # tiles live on the scoped-vmem stack (Mosaic does not reuse
-            # stack slots across unrolled iterations): ~3.4 MB x nj.
-            # Raise the 16 MB default; physical VMEM is 128 MB and the
-            # resident inputs take only ~9 MB (+2BW onehot cache).
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024),
-            interpret=interpret,
-        )(mu_arr, window, ff, r, m, kl, lrv, regv)
-        return out, sse[0, 0]
-    kernel = functools.partial(_kernel, int(W), lo_r, hi_r,
-                               bool(clamp_pred), bool(row_mean),
-                               bool(bias_none), bool(cache_onehot), link,
-                               bool(all2d), dot_sum)
-    if all2d:
-        r, m, kl = r[:, None], m[:, None], kl[:, None]
-        col = lambda: pl.BlockSpec((ch, 1), lambda t, j: (j, 0),
-                                   memory_space=pltpu.VMEM)
-    else:
-        col = lambda: pl.BlockSpec((ch,), lambda t, j: (j,),
-                                   memory_space=pltpu.VMEM)
+    F_upd [R, k] float32 rows being trained (R >= every lo + W); F_fix
+    [N, k] fixed-side factors (float32 or bfloat16); fix/r/m/kl [nb, B]:
+    fixed-side row ids, ratings, 0/1 mask and window-local row ids of
+    each batch (``sorted_pass_layout`` order); lo [nb] window starts;
+    lrv/regv [k] per-column learning rates and regularization.  Returns
+    (F_upd trained, SSE of the sweep-0 residuals).'''
+    R, kdim = F_upd.shape
+    nb, B = r.shape
+    starts, lens = run_offsets(kl, m, W)
+    lo = lo.astype(jnp.int32)
+    first, nseg = row_runs(lo, lens, R)
+    kernel = functools.partial(
+        _kernel, int(inner_steps), int(tile), int(B), int(W), link,
+        bool(clamp_pred), float(lo_r), float(hi_r), bool(row_mean),
+        bool(bias_none))
     out, sse = pl.pallas_call(
         kernel,
-        grid=(int(inner_steps), B // ch),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda t, j: (0, 0),
-                         memory_space=pltpu.SMEM),      # mu
-            pl.BlockSpec((W, k), lambda t, j: (0, 0),
-                         memory_space=pltpu.VMEM),      # window
-            pl.BlockSpec((ch, k), lambda t, j: (j, 0),
-                         memory_space=pltpu.VMEM),      # ff
-            col(),                                      # r
-            col(),                                      # m
-            col(),                                      # kl
-            pl.BlockSpec((k,), lambda t, j: (0,),
-                         memory_space=pltpu.VMEM),      # lrv
-            pl.BlockSpec((k,), lambda t, j: (0,),
-                         memory_space=pltpu.VMEM),      # regv
-        ],
-        out_specs=(
-            pl.BlockSpec((W, k), lambda t, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda t, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((W, k), jnp.float32),
-            jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((W, k), jnp.float32),      # acc
-                        pltpu.VMEM((W, k), jnp.float32),      # window
-                        # minimal dummy when the cache is off (the slab
-                        # is only referenced under cache_onehot)
-                        pltpu.VMEM((B, W) if cache_onehot else (8, 128),
-                                   jnp.bfloat16),             # onehot
-                        pltpu.VMEM((W, 1), jnp.float32)],     # counts
-        # let chunk sizes above 4096 fit their per-iteration onehot/fu/g
-        # tiles (the 16 MB default scoped-vmem stack caps chunk at ~4k)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+        out_shape=(jax.ShapeDtypeStruct((R * kdim,), jnp.float32),
+                   jax.ShapeDtypeStruct((R,), jnp.float32)),
+        grid=(R,),
+        compiler_params=plgpu.CompilerParams(num_warps=int(num_warps)),
         interpret=interpret,
-    )(mu_arr, window, ff, r, m, kl, lrv, regv)
-    return out, sse[0, 0]
-
-
-def _kernel_group(W, k, lo_r, hi_r, clamp_pred, row_mean, bias_none,
-                  link, dot_sum, seed_copy, lo_ref, mu_ref, fupd_ref,
-                  ff_ref, r_ref, m_ref, kl_ref, lrv_ref, regv_ref,
-                  out_ref, sse_ref, acc_ref, win_scr, win_dma, oh_scr,
-                  cnt_scr, sem_in, sem_out):
-    '''Batch-group variant of ``_kernel`` (all-2D chain only): grid
-    (g, t, j) processes G consecutive sorted-window batches in ONE
-    pallas_call.  The updated factor matrix stays in HBM
-    (``memory_space=ANY``, aliased in/out); each batch's W-row window is
-    moved by an in-kernel async copy at the scalar-prefetched row offset
-    ``lo_ref[g]`` — replacing the per-batch XLA dynamic_slice /
-    dynamic_update_slice pair AND the per-batch pallas dispatch, which
-    the grouped grid amortizes G-fold.  Batches execute in stream order
-    (grid dims are arbitrary/sequential), so update semantics match the
-    scanned per-batch kernel exactly: the window read of batch g happens
-    after the writeback of batch g-1 (synchronous DMA waits).'''
-    g = pl.program_id(0)          # batch within the group
-    t = pl.program_id(1)          # inner gradient iteration
-    j = pl.program_id(2)          # chunk
-    nt = pl.num_programs(1)
-    nj = pl.num_programs(2)
-    ch = ff_ref.shape[0]
-    # HBM slices must be 128-lane-aligned for the window DMAs, so DMAs
-    # stage through the kp-wide win_dma; math runs on the k-wide win_scr
-    # (partial-lane vector ops only at the per-batch stage/unstage, never
-    # in the per-sweep chain)
-    kp = win_dma.shape[1]
-    lo = lo_ref[g]
-
-    @pl.when((g == 0) & (t == 0) & (j == 0))
-    def _():
-        # Every window read/write below goes through out_ref, so batch g
-        # always sees batch g-1's writeback even when windows overlap.
-        # When compiled, out_ref IS fupd_ref (input_output_aliases) and
-        # this seed copy is skipped; interpret mode has no aliasing, so
-        # the output must be seeded with the input once per call.
-        if seed_copy:
-            pltpu.make_async_copy(fupd_ref, out_ref, sem_in).start()
-            pltpu.make_async_copy(fupd_ref, out_ref, sem_in).wait()
-        sse_ref[0, 0] = 0.0
-
-    @pl.when((t == 0) & (j == 0))
-    def _():
-        # fetch this batch's window (the previous batch's writeback has
-        # completed — see the tail of this kernel)
-        pltpu.make_async_copy(
-            out_ref.at[pl.ds(lo, W), :], win_dma, sem_in).start()
-        pltpu.make_async_copy(
-            out_ref.at[pl.ds(lo, W), :], win_dma, sem_in).wait()
-        win_scr[:] = win_dma[:, :k]
-        cnt_scr[:] = jnp.zeros_like(cnt_scr)
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    ff = ff_ref[:].astype(jnp.float32)                 # [ch, k]
-    kl = kl_ref[:]                                     # [ch, 1]
-    m = m_ref[:]
-    r = r_ref[:]
-
-    @pl.when(t == 0)
-    def _():
-        oh_scr[pl.ds(j * ch, ch), :] = (
-            kl == jax.lax.broadcasted_iota(
-                jnp.int32, (ch, W), 1)).astype(jnp.bfloat16)
-
-    onehot = oh_scr[pl.ds(j * ch, ch), :]
-
-    @pl.when(t == 0)
-    def _():
-        cnt_scr[:] += jax.lax.dot_general(
-            onehot, m.astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)        # [W, 1]
-
-    fu = jax.lax.dot_general(
-        onehot, win_scr[:].astype(jnp.bfloat16),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)            # [ch, k]
-    dot = _pred_dot2d(fu, ff, k, dot_sum)              # [ch, 1]
-    if link == 'logistic':
-        rng_w = hi_r - lo_r
-        sig = jax.nn.sigmoid(dot)
-        pred = lo_r + sig * rng_w
-        err = (r - pred) * m
-        eff = err * sig * (1.0 - sig) * rng_w
-    else:
-        pred = (1.0 + dot) if bias_none else (mu_ref[0, 0] + dot)
-        if clamp_pred:
-            pred = jnp.clip(pred, lo_r, hi_r)
-        err = (r - pred) * m
-        eff = err
-
-    @pl.when(t == 0)      # epoch RMSE = pre-update residual
-    def _():
-        sse_ref[0, 0] += (err * err).sum()
-
-    # error term only; diagonal-regularization identity (see _kernel)
-    acc_ref[:] += jax.lax.dot_general(
-        onehot, (eff * ff).astype(jnp.bfloat16),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)            # [W, k]
-
-    @pl.when(j == nj - 1)
-    def _():
-        cnt = cnt_scr[:]
-        alive = (cnt > 0.0).astype(jnp.float32)
-        reg = regv_ref[:][None, :] * win_scr[:]
-        if row_mean:
-            gsum = acc_ref[:] / jnp.maximum(cnt, 1.0) - reg * alive
-        else:
-            gsum = acc_ref[:] - reg * cnt
-        win_scr[:] = win_scr[:] + lrv_ref[:][None, :] * gsum
-
-    @pl.when((t == nt - 1) & (j == nj - 1))
-    def _():
-        # write the finished window back before the next batch's read
-        # (windows of consecutive batches may share rows).  Pad lanes of
-        # F_upd hold zeros by construction, so the full-width store can
-        # write zeros there (no partial-lane store)
-        if k == kp:
-            win_dma[:] = win_scr[:]
-        else:
-            win_dma[:] = jnp.concatenate(
-                [win_scr[:], jnp.zeros((W, kp - k), jnp.float32)], axis=1)
-        pltpu.make_async_copy(
-            win_dma, out_ref.at[pl.ds(lo, W), :], sem_out).start()
-        pltpu.make_async_copy(
-            win_dma, out_ref.at[pl.ds(lo, W), :], sem_out).wait()
-
-
-def _kernel_group_resident(W, nj, lo_r, hi_r, clamp_pred, row_mean,
-                           bias_none, link, dot_sum, seed_copy, lo_ref,
-                           mu_ref, fupd_ref, ff_ref, r_ref, m_ref, kl_ref,
-                           lrv_ref, regv_ref, out_ref, sse_ref, win_scr,
-                           win_dma, oh_scr, sem_in, sem_out):
-    '''Resident-style batch-group kernel: grid (g, t) — each batch's
-    WHOLE ff/r/m/kl block lives in VMEM for all inner sweeps (Mosaic's
-    revolving block buffers prefetch batch g+1's ff during batch g's
-    compute), and the chunk loop is unrolled inside like
-    ``_kernel_resident``.  This removes the two suspected costs of the
-    chunked group kernel (the r3 negative: 0.617 vs 0.369 s/epoch at
-    G=64): per-(g,t,j) block re-streaming of ff under ''arbitrary''
-    semantics, and nj-times-more grid steps per sweep.  Window movement
-    stays in-kernel DMA at the scalar-prefetched ``lo_ref[g]`` offset,
-    synchronous, so batch g+1's window read still sees batch g's
-    writeback (overlapping windows are correct).'''
-    g = pl.program_id(0)          # batch within the group
-    t = pl.program_id(1)          # inner gradient iteration
-    nt = pl.num_programs(1)
-    B, k = ff_ref.shape
-    ch = B // nj
-    kp = win_dma.shape[1]
-    lo = lo_ref[g]
-
-    @pl.when((g == 0) & (t == 0))
-    def _():
-        if seed_copy:             # interpret mode only (no aliasing)
-            pltpu.make_async_copy(fupd_ref, out_ref, sem_in).start()
-            pltpu.make_async_copy(fupd_ref, out_ref, sem_in).wait()
-        sse_ref[0, 0] = 0.0
-
-    @pl.when(t == 0)
-    def _():
-        pltpu.make_async_copy(
-            out_ref.at[pl.ds(lo, W), :], win_dma, sem_in).start()
-        pltpu.make_async_copy(
-            out_ref.at[pl.ds(lo, W), :], win_dma, sem_in).wait()
-        win_scr[:] = win_dma[:, :k]
-
-    winb = win_scr[:].astype(jnp.bfloat16)
-    acc = jnp.zeros((W, k), jnp.float32)
-    cnt = jnp.zeros((W, 1), jnp.float32)
-    err2 = jnp.zeros((), jnp.float32)
-    for j in range(nj):
-        ff = ff_ref[j * ch:(j + 1) * ch, :].astype(jnp.float32)
-        kl = kl_ref[j * ch:(j + 1) * ch]                   # [ch, 1]
-        m = m_ref[j * ch:(j + 1) * ch]
-        r = r_ref[j * ch:(j + 1) * ch]
-
-        @pl.when(t == 0)
-        def _(j=j, kl=kl):
-            oh_scr[j * ch:(j + 1) * ch, :] = (
-                kl == jax.lax.broadcasted_iota(
-                    jnp.int32, (ch, W), 1)).astype(jnp.bfloat16)
-
-        onehot = oh_scr[j * ch:(j + 1) * ch, :]
-        cnt = cnt + jax.lax.dot_general(
-            onehot, m.astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        fu = jax.lax.dot_general(
-            onehot, winb,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        dot = _pred_dot2d(fu, ff, k, dot_sum)              # see _kernel
-        if link == 'logistic':
-            rng_w = hi_r - lo_r
-            sig = jax.nn.sigmoid(dot)
-            pred = lo_r + sig * rng_w
-            err = (r - pred) * m
-            eff = err * sig * (1.0 - sig) * rng_w
-        else:
-            pred = (1.0 + dot) if bias_none else (mu_ref[0, 0] + dot)
-            if clamp_pred:
-                pred = jnp.clip(pred, lo_r, hi_r)
-            err = (r - pred) * m
-            eff = err
-        err2 = err2 + (err * err).sum()
-        acc = acc + jax.lax.dot_general(
-            onehot, (eff * ff).astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-    @pl.when(t == 0)      # epoch RMSE = pre-update residual, summed over g
-    def _():
-        sse_ref[0, 0] += err2
-
-    alive = (cnt > 0.0).astype(jnp.float32)
-    reg = regv_ref[:][None, :] * win_scr[:]
-    if row_mean:
-        gsum = acc / jnp.maximum(cnt, 1.0) - reg * alive
-    else:
-        gsum = acc - reg * cnt
-    win_scr[:] = win_scr[:] + lrv_ref[:][None, :] * gsum
-
-    @pl.when(t == nt - 1)
-    def _():
-        # write back before the next batch's window read (windows of
-        # consecutive batches may share rows); zero pad lanes as in
-        # _kernel_group
-        if k == kp:
-            win_dma[:] = win_scr[:]
-        else:
-            win_dma[:] = jnp.concatenate(
-                [win_scr[:], jnp.zeros((W, kp - k), jnp.float32)], axis=1)
-        pltpu.make_async_copy(
-            win_dma, out_ref.at[pl.ds(lo, W), :], sem_out).start()
-        pltpu.make_async_copy(
-            win_dma, out_ref.at[pl.ds(lo, W), :], sem_out).wait()
-
-
-@functools.partial(jax.jit, static_argnames=('W', 'chunk', 'clamp_pred',
-                                             'lo_r', 'hi_r', 'row_mean',
-                                             'bias_none', 'interpret',
-                                             'inner_steps', 'link',
-                                             'dot_sum', 'resident'))
-def half_pass_group(F_upd, ff, r, m, kl, lo, lrv, regv, mu, W, chunk=4096,
-                    clamp_pred=True, lo_r=1.0, hi_r=5.0, row_mean=True,
-                    bias_none=False, interpret=False, inner_steps=1,
-                    link='identity', dot_sum=False, resident=False):
-    '''G sorted-window batch steps in ONE pallas_call (all-2D chain).
-
-    F_upd [n_rows_padded, k]: the full updated-side factor matrix; it
-    stays in HBM, aliased input->output when compiled (donated; in
-    interpret mode a seed copy replaces the aliasing).  ff [G, B, k]
-    pre-gathered fixed rows; r/m/kl [G, B]; lo [G] int32 window starts
-    (each window [lo, lo+W) must be in range — the augmented factor
-    layout already pads W extra rows).  Batches run in order with the
-    same numerics as ``half_pass_batch(..., all2d=True)`` per batch.
-
-    Returns (F_upd_out, sse) with sse summed over the G batches' first
-    sweeps.  F_upd's minor dim may be lane-padded (multiple of 128)
-    wider than ff's k — the window DMAs need 128-aligned HBM slices, so
-    an unaligned F_upd is padded here and sliced back on return; callers
-    that scan many groups should pre-pad once and carry the padded array
-    (``sgd_mf.make_alternating_epoch`` does).'''
-    G, B, k = ff.shape
-    kp = -(-k // 128) * 128
-    trim = F_upd.shape[1] == k and kp != k
-    if trim:
-        F_upd = jnp.pad(F_upd, ((0, 0), (0, kp - k)))
-    if F_upd.shape[1] != kp:
-        raise ValueError('F_upd width %d != padded k %d (k=%d)'
-                         % (F_upd.shape[1], kp, k))
-    ch = min(chunk, B)
-    if B % ch != 0:
-        raise ValueError('batch %d not a multiple of chunk %d' % (B, ch))
-    nj = B // ch
-    mu_arr = jnp.full((1, 1), mu, jnp.float32)
-    ff2 = ff.reshape(G * B, k)
-    if resident:
-        kernel = functools.partial(_kernel_group_resident, int(W), nj,
-                                   lo_r, hi_r, bool(clamp_pred),
-                                   bool(row_mean), bool(bias_none), link,
-                                   dot_sum, bool(interpret))
-        colr = lambda: pl.BlockSpec((B, 1), lambda g, t, lo: (g, 0),
-                                    memory_space=pltpu.VMEM)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(G, int(inner_steps)),
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda g, t, lo: (0, 0),
-                             memory_space=pltpu.SMEM),      # mu
-                pl.BlockSpec(memory_space=pl.ANY),       # F_upd (HBM)
-                pl.BlockSpec((B, k), lambda g, t, lo: (g, 0),
-                             memory_space=pltpu.VMEM),      # ff (whole)
-                colr(),                                     # r
-                colr(),                                     # m
-                colr(),                                     # kl
-                pl.BlockSpec((k,), lambda g, t, lo: (0,),
-                             memory_space=pltpu.VMEM),      # lrv
-                pl.BlockSpec((k,), lambda g, t, lo: (0,),
-                             memory_space=pltpu.VMEM),      # regv
-            ],
-            out_specs=(
-                pl.BlockSpec(memory_space=pl.ANY),       # F_upd out
-                pl.BlockSpec((1, 1), lambda g, t, lo: (0, 0),
-                             memory_space=pltpu.SMEM),      # sse
-            ),
-            scratch_shapes=[pltpu.VMEM((W, k), jnp.float32),  # win (math)
-                            pltpu.VMEM((W, kp), jnp.float32),  # win (DMA)
-                            pltpu.VMEM((B, W), jnp.bfloat16),  # onehot
-                            pltpu.SemaphoreType.DMA(()),
-                            pltpu.SemaphoreType.DMA(())],
-        )
-        grid_dims = 2
-    else:
-        kernel = functools.partial(_kernel_group, int(W), int(k), lo_r,
-                                   hi_r, bool(clamp_pred), bool(row_mean),
-                                   bool(bias_none), link, dot_sum,
-                                   bool(interpret))
-        col = lambda: pl.BlockSpec((ch, 1),
-                                   lambda g, t, j, lo: (g * nj + j, 0),
-                                   memory_space=pltpu.VMEM)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(G, int(inner_steps), nj),
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda g, t, j, lo: (0, 0),
-                             memory_space=pltpu.SMEM),          # mu
-                pl.BlockSpec(memory_space=pl.ANY),           # F_upd
-                pl.BlockSpec((ch, k), lambda g, t, j, lo: (g * nj + j, 0),
-                             memory_space=pltpu.VMEM),          # ff
-                col(),                                          # r
-                col(),                                          # m
-                col(),                                          # kl
-                pl.BlockSpec((k,), lambda g, t, j, lo: (0,),
-                             memory_space=pltpu.VMEM),          # lrv
-                pl.BlockSpec((k,), lambda g, t, j, lo: (0,),
-                             memory_space=pltpu.VMEM),          # regv
-            ],
-            out_specs=(
-                pl.BlockSpec(memory_space=pl.ANY),           # F_upd out
-                pl.BlockSpec((1, 1), lambda g, t, j, lo: (0, 0),
-                             memory_space=pltpu.SMEM),          # sse
-            ),
-            scratch_shapes=[pltpu.VMEM((W, k), jnp.float32),    # acc
-                            pltpu.VMEM((W, k), jnp.float32),    # win (math)
-                            pltpu.VMEM((W, kp), jnp.float32),   # win (DMA)
-                            pltpu.VMEM((B, W), jnp.bfloat16),   # onehot
-                            pltpu.VMEM((W, 1), jnp.float32),    # counts
-                            pltpu.SemaphoreType.DMA(()),
-                            pltpu.SemaphoreType.DMA(())],
-        )
-        grid_dims = 3
-    out, sse = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct(F_upd.shape, F_upd.dtype),
-            jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        ),
-        # compiled: donate F_upd (flattened input 2 counts the scalar-
-        # prefetch lo as input 0) — out_ref IS the input buffer, no
-        # second factor matrix in HBM, no seed copy.  interpret mode has
-        # no aliasing; the kernel seeds the output instead.
-        input_output_aliases={} if interpret else {2: 0},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=('arbitrary',) * grid_dims,
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=bool(interpret),
-    )(lo, mu_arr, F_upd,
-      ff2, r.reshape(G * B, 1), m.reshape(G * B, 1),
-      kl.reshape(G * B, 1), lrv, regv)
-    return (out[:, :k] if trim else out), sse[0, 0]
+        backend='triton',
+        name='sorted_half_pass',
+    )(jnp.reshape(jnp.asarray(mu, jnp.float32), (1,)),
+      F_upd.astype(jnp.float32).reshape(-1), F_fix,
+      fix.astype(jnp.int32).reshape(-1), r.astype(jnp.float32).reshape(-1),
+      lo, starts.reshape(-1), lens.reshape(-1), first, nseg,
+      lrv.astype(jnp.float32), regv.astype(jnp.float32))
+    return out.reshape(R, kdim), sse.sum()

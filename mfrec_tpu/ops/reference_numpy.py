@@ -6,8 +6,8 @@ The reference keeps pure-python twins of each optimized loop as dev tools
 ``als_wrmf_dense`` als_implicit.pyx:71); we follow the same strategy: these
 functions re-express the Cython semantics line-for-line in numpy (float64,
 strictly sequential) and are used by the test suite to validate both the
-order-faithful serial JAX kernels (near bit-parity) and the fused TPU
-kernels (final-RMSE parity).
+order-faithful serial JAX kernels (near bit-parity) and the fused
+device kernels (final-RMSE parity).
 
 Layout note: these oracles use the *reference* layout u=[dim, items],
 v=[dim, users] (base.py:144-146).
@@ -193,3 +193,71 @@ def fn_train_oracle(nbr_epochs, lr, lr_bu, lr_bi, K, K_bu, K_bi, mu,
             Y[ids] += lr * ((err * nrm) * qi[None, :] - K_y * Y[ids])
         rmse = np.sqrt(sse / n)
     return rmse
+
+
+def window_half_pass(win, ff, r, m, kl, lrv, regv, mu, inner_steps=1,
+                     link='identity', clamp_pred=True, lo_r=1.0, hi_r=5.0,
+                     row_mean=True, bias_none=False):
+    '''float64 twin of one sorted-window batch of the alternating
+    engine (``sgd_mf.window_half_pass_xla``): T = ``inner_steps`` gradient
+    sweeps of the W window rows against the batch's pre-gathered fixed
+    rows ``ff`` [B, k].  Per sweep every slot predicts from its row's
+    current value (``1 + dot`` with ``bias_none``, else ``mu + dot``,
+    clamped to [lo_r, hi_r] when ``clamp_pred``; the logistic link
+    ``lo_r + sigmoid(dot) * (hi_r - lo_r)`` instead), and each row takes
+    one step of ``lrv * g`` where g sums ``eff * ff - regv * row`` over
+    its slots (the mean over them with ``row_mean``).  Bias modes are
+    column patterns of ``lrv``/``regv`` over the augmented
+    ``[factors | bias | 1]`` rows.  Returns (window [W, k], SSE of the
+    sweep-0 residual).'''
+    win = np.array(win, np.float64)
+    ff = np.asarray(ff, np.float64)
+    r = np.asarray(r, np.float64)
+    m = np.asarray(m, np.float64)
+    kl = np.asarray(kl, np.int64)
+    lrv = np.asarray(lrv, np.float64)
+    regv = np.asarray(regv, np.float64)
+    W = win.shape[0]
+    cnt = np.bincount(kl, weights=m, minlength=W)[:W]
+    sse0 = 0.0
+    for t in range(int(inner_steps)):
+        fu = win[kl]
+        dot = (fu * ff).sum(1)
+        if link == 'logistic':
+            sig = 1.0 / (1.0 + np.exp(-dot))
+            err = (r - (lo_r + sig * (hi_r - lo_r))) * m
+            eff = err * sig * (1.0 - sig) * (hi_r - lo_r)
+        else:
+            pred = (1.0 if bias_none else float(mu)) + dot
+            if clamp_pred:
+                pred = np.clip(pred, lo_r, hi_r)
+            err = (r - pred) * m
+            eff = err
+        if t == 0:
+            sse0 = float((err * err).sum())
+        g = eff[:, None] * ff - regv[None, :] * fu * m[:, None]
+        gsum = np.zeros_like(win)
+        np.add.at(gsum, kl, g)
+        if row_mean:
+            gsum /= np.maximum(cnt, 1.0)[:, None]
+        win = win + lrv[None, :] * gsum
+    return win, sse0
+
+
+def sorted_half_pass(F_upd, F_fix, fix, r, m, kl, lo, lrv, regv, mu, W,
+                     **kw):
+    '''float64 twin of a whole sorted-window half-pass
+    (``sgd_mf.sorted_half_pass``): ``window_half_pass`` on each batch's
+    W-row window of ``F_upd`` in batch order, written back in place.
+    Returns (F_upd, summed sweep-0 SSE).'''
+    F = np.array(F_upd, np.float64)
+    F_fix = np.asarray(F_fix, np.float64)
+    sse = 0.0
+    for b in range(np.shape(r)[0]):
+        s = int(lo[b])
+        win, sse_b = window_half_pass(F[s:s + W], F_fix[np.asarray(fix[b])],
+                                      r[b], m[b], kl[b], lrv, regv, mu,
+                                      **kw)
+        F[s:s + W] = win
+        sse += sse_b
+    return F, sse

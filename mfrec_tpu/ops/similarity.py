@@ -3,7 +3,7 @@ Similarity engine: one matmul instead of O(n^2) python loops.
 
 Replaces the per-row scans of the reference (``base.py:1294-1466``,
 ``gradient_descent.py:688-766``, ``knn_users.py:72-136``): factors are
-normalized once, similarities to a query batch are a single MXU matmul,
+normalized once, similarities to a query batch are a single matmul,
 and all-pairs caches are built blocked with fused top-k.
 
 Methods (matching the reference's dispatch tables):

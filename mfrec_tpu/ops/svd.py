@@ -2,10 +2,10 @@
 Truncated SVD of the sparse ratings matrix — randomized subspace iteration.
 
 Replaces the reference's third-party ``sparsesvd`` call
-(``base.py:1181-1189``, ``simplesvd.py:75-82``) with a TPU-native
+(``base.py:1181-1189``, ``simplesvd.py:75-82``) with a batched
 randomized SVD (Halko/Martinsson/Tropp 2011): the sparse matrix is used as
-an *implicit operator* via COO segment-sums, so every dense product is an
-MXU matmul and the full matrix is never densified.
+an *implicit operator* via COO segment-sums, so every dense product is a
+matmul and the full matrix is never densified.
 '''
 from __future__ import annotations
 

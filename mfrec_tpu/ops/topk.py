@@ -2,7 +2,7 @@
 Top-N retrieval: blocked P@Q^T scoring with fused top-k and rated-masking.
 
 Replaces the per-candidate python scoring loop of the reference
-(``mf.py:144-193`` and ``base.py:899-927``) with a single MXU matmul per
+(``mf.py:144-193`` and ``base.py:899-927``) with a single matmul per
 item block and a running top-k merge, so the full score matrix never hits
 HBM at once.
 '''
@@ -88,8 +88,7 @@ def pad_rated_lists(ratings, user_indices, cap=None, pad_to=None):
     L = int(max(counts.max() if counts.size else 0, 1))
     # L policy: round up to a power of two — downstream kernels are
     # jitted on L, so shape-stable pads avoid a recompile per novel
-    # batch composition (a serving-path requirement; compile costs
-    # minutes on the relay)
+    # batch composition (a serving-path requirement)
     L = 1 << (L - 1).bit_length()
     if cap is not None:
         L = min(L, int(cap))

@@ -54,22 +54,22 @@ def padded_uniform(ratings, axis, D):
 
 def make_sharded_als_epoch(mesh, c_pos=1.0, alpha=0.0, reg=0.015,
                            axis='dp', solver='exact', cg_steps=6,
-                           gram_dtype=None, pcg_impl='auto'):
+                           gram_dtype=None):
     '''Build a jitted sharded ALS epoch:
 
         (P, Q, u_idx, u_val, u_mask, i_idx, i_val, i_mask) -> (P, Q)
 
     P [Up, k] row-sharded, Q [Ip, k] row-sharded; neighbor-list tensors
     row-sharded to match their side.  Each half-sweep all-gathers the
-    fixed side (one ICI all_gather), computes HH locally, then runs the
+    fixed side (one all_gather), computes HH locally, then runs the
     batched normal-equation solve on the local rows.
 
     ``solver='cg'``: warm-started Jacobi-PCG (``ops.als.pcg_solve``)
     instead of the exact Cholesky — the same fast path as the
-    single-chip tier, now over the mesh.  ``gram_dtype`` (e.g.
-    ``jnp.bfloat16``) runs the rank-L Gram corrections at bf16 MXU rate
-    with f32 accumulation; the CG path always uses bf16 Gram like the
-    single-chip ``_bucket_cg_body``.
+    single-device tier, now over the mesh.  ``gram_dtype`` (e.g.
+    ``jnp.bfloat16``) runs the rank-L Gram corrections with bf16 inputs
+    and f32 accumulation; the CG path always uses bf16 Gram like the
+    single-device ``_bucket_cg_body``.
     '''
 
     def solve_rows(F_fixed, x0, nbr_idx, nbr_val, mask):
@@ -103,16 +103,6 @@ def make_sharded_als_epoch(mesh, c_pos=1.0, alpha=0.0, reg=0.015,
         # drives them NEAR zero from a warm start)
         alive = (mask.sum(1) > 0).astype(jnp.float32)[:, None]
         if solver == 'cg':
-            impl = pcg_impl
-            if impl in (None, 'auto'):
-                impl = 'pallas' if jax.default_backend() != 'cpu' else 'xla'
-            if impl == 'pallas':
-                # per-shard VMEM-resident-M blocked CG (ops.pallas_cg);
-                # runs inside shard_map on the local rows
-                from mfrec_tpu.ops.pallas_cg import pcg_solve_resident
-                return pcg_solve_resident(
-                    M, b, x0, int(cg_steps),
-                    interpret=jax.default_backend() == 'cpu') * alive
             return pcg_solve(M, b, x0, int(cg_steps)) * alive
         L = jnp.linalg.cholesky(M)
         sol = jax.scipy.linalg.cho_solve((L, True), b[..., None])[..., 0]

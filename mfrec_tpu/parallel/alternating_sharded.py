@@ -14,7 +14,7 @@ So the multi-chip layout is:
   * then P is all-gathered once and the Q half-pass runs over each
     device's items' batches.
 
-Communication per epoch = one all_gather of each factor side, riding ICI
+Communication per epoch = one all_gather of each factor side
 — the same pattern as sharded ALS; within a device the kernel is the
 scatter-free one-hot window aggregation (see ARCHITECTURE.md).
 
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as PS
 from jax import shard_map
 
-from mfrec_tpu.ops.sgd_mf import clamp
+from mfrec_tpu.ops.sgd_mf import col_vectors, sorted_half_pass
 
 
 def _pack_side(key, other, vals, D, rows_per_shard, W, batch_size,
@@ -128,81 +128,23 @@ def unpad_factors_sharded(Fp, rows_per_shard, W, D, n):
 
 def sharded_half_pass(F_upd, F_full, mu, layout, lrv, regv, *, W, chunk,
                       row_mean=True, clamp_pred=True, lo_r=1.0, hi_r=5.0,
-                      bias_none=False, inner_steps=1,
-                      use_pallas_half=False, pallas_interpret=False):
+                      bias_none=False, inner_steps=1, kernel=None,
+                      interpret=False):
     '''One sorted-window half-pass over LOCAL shard rows — the shared
     core of the sharded alternating / implicit / FN epochs (single
     source of truth; a numerics fix here applies to every sharded
     tier).  ``layout`` = (kl, og, rb, mb, lo) already stripped to local
     shapes; ``lrv``/``regv`` are the per-column learning-rate /
     regularization vectors (the fixed/learned/frozen-factor modes are
-    all just column patterns).  ``use_pallas_half`` swaps the inline
-    XLA sweeps for the single-chip fused kernel per batch (VERDICT r4
-    #7; interpret-mode parity pinned on the virtual mesh).'''
+    all just column patterns).  The batches run the single-device
+    ``sgd_mf.sorted_half_pass`` (``kernel``/``interpret`` pass through;
+    the default picks by platform).'''
     kl, og, rb, mb, lo = layout
-
-    def step(carry, batch):
-        F_upd, sse = carry
-        kli, ogi, r, m, lo_b = batch
-        ff = F_full[ogi]
-        # zero-pad to a chunk multiple so any batch_size works
-        # (mask-0 rows contribute nothing to the aggregation)
-        ch = min(chunk, kli.shape[0])
-        pad = -kli.shape[0] % ch
-        if pad:
-            ff = jnp.pad(ff, ((0, pad), (0, 0)))
-            kli = jnp.pad(kli, (0, pad))
-            m = jnp.pad(m, (0, pad))
-            r = jnp.pad(r, (0, pad))
-        if use_pallas_half:
-            from mfrec_tpu.ops.pallas_half_pass import half_pass_batch
-            win = jax.lax.dynamic_slice_in_dim(F_upd, lo_b, W, 0)
-            win, sse_b = half_pass_batch(
-                win, ff, r, m, kli, lrv, regv, mu, W, chunk=ch,
-                clamp_pred=clamp_pred, lo_r=lo_r, hi_r=hi_r,
-                row_mean=row_mean, bias_none=bias_none,
-                interpret=pallas_interpret, inner_steps=inner_steps,
-                all2d=True, dot_sum=F_upd.shape[1] <= 128)
-            F_upd = jax.lax.dynamic_update_slice_in_dim(
-                F_upd, win, lo_b, 0)
-            return (F_upd, sse + sse_b), None
-        B = kli.shape[0]
-        kc = kli.reshape(B // ch, ch)
-        onehot = (kc[:, :, None] ==
-                  jnp.arange(W)[None, None, :]).astype(jnp.bfloat16)
-        if row_mean:
-            mc = m.reshape(B // ch, ch).astype(jnp.bfloat16)
-            cnt = jnp.einsum('nc,ncw->w', mc, onehot,
-                             preferred_element_type=jnp.float32)
-            cnt = jnp.maximum(cnt, 1.0)[:, None]
-        win = jax.lax.dynamic_slice_in_dim(F_upd, lo_b, W, 0)
-
-        # fori_loop, not python range: the shipped inner_steps
-        # default (128) would explode the traced graph unrolled
-        def sweep(t, carry):
-            win, sse = carry
-            fu = win[kli]
-            dot = (fu * ff).sum(-1)
-            pred = (1.0 + dot) if bias_none else (mu + dot)
-            if clamp_pred:
-                pred = clamp(pred, lo_r, hi_r)
-            err = (r - pred) * m
-            sse = jnp.where(t == 0, sse + (err * err).sum(), sse)
-            g = err[:, None] * ff - regv[None, :] * fu * m[:, None]
-            gc = g.reshape(B // ch, ch, -1).astype(jnp.bfloat16)
-            gsum = jnp.einsum('nck,ncw->wk', gc, onehot,
-                              preferred_element_type=jnp.float32)
-            if row_mean:
-                gsum = gsum / cnt
-            return win + lrv[None, :] * gsum, sse
-        win, sse = jax.lax.fori_loop(0, inner_steps, sweep, (win, sse))
-        F_upd = jax.lax.dynamic_update_slice_in_dim(F_upd, win, lo_b, 0)
-        return (F_upd, sse), None
-
-    (F_upd, sse), _ = jax.lax.scan(
-        step, (F_upd, jnp.zeros((), F_upd.dtype)),
-        (kl, og, rb, mb, lo))
-    return F_upd, sse
+    return sorted_half_pass(
+        F_upd, F_full, og, rb, mb, kl, lo, lrv, regv, mu, W=W, chunk=chunk,
+        inner_steps=inner_steps, clamp_pred=clamp_pred, lo_r=lo_r,
+        hi_r=hi_r, row_mean=row_mean, bias_none=bias_none, kernel=kernel,
+        interpret=interpret)
 
 
 def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
@@ -210,8 +152,7 @@ def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
                                    chunk=4096, row_mean=True, axis='dp',
                                    inner_steps=1, slice_axis=None,
                                    lr_bu=0.0, lr_bi=0.0, K_bu=0.0,
-                                   K_bi=0.0, use_pallas_half=False,
-                                   pallas_interpret=None):
+                                   K_bi=0.0):
     '''Jitted multi-chip epoch over augmented factors:
 
         (Paug, Qaug, mu, p_layout, q_layout) -> (Paug, Qaug, rmse)
@@ -229,31 +170,12 @@ def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
     Multi-slice (``slice_axis`` on a 2-D mesh from ``make_mesh_2d``):
     each slice trains its OWN rating shard against factors replicated
     over the slice axis; at epoch end the factors are parameter-averaged
-    over ``slice_axis`` with a pmean — Zinkevich averaging over DCN on
-    top of ICI sharding within a slice.  Layouts then carry a leading
+    over ``slice_axis`` with a pmean — Zinkevich averaging across slices
+    on top of row sharding within a slice.  Layouts then carry a leading
     slice dimension ([S, D, nb, B], from
     ``build_multislice_alternating_layout``).
     '''
     learned = bias_mode == 'learned'
-    if pallas_interpret is None:
-        # interpret-mode lowering on CPU (the virtual-mesh test path);
-        # compiled Mosaic per device shard on TPU
-        pallas_interpret = jax.default_backend() == 'cpu'
-
-    def col_vectors(kdim, upd_is_user):
-        # per-column lr and regularization for [factors | bu | 1] rows
-        # (same convention as ops.sgd_mf.make_alternating_epoch)
-        lrv = np.full(kdim + 2, lr, np.float32)
-        regv = np.full(kdim + 2, K, np.float32)
-        own_bias_col = kdim if upd_is_user else kdim + 1
-        const_col = kdim + 1 if upd_is_user else kdim
-        lrv[own_bias_col] = (lr_bu if upd_is_user else lr_bi) if learned \
-            else 0.0
-        lrv[const_col] = 0.0
-        regv[own_bias_col] = (K_bu if upd_is_user else K_bi) if learned \
-            else 0.0
-        regv[const_col] = 0.0
-        return jnp.asarray(lrv), jnp.asarray(regv)
 
     def half_pass(F_upd, F_full, mu, kl, og, rb, mb, lo, upd_is_user):
         # local shapes: F_upd [Ushard+W, k2]; blocks [1, nb, B] on a 1-D
@@ -261,13 +183,15 @@ def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
         kl, og, rb, mb = (x.reshape(x.shape[-2:]) for x in
                           (kl, og, rb, mb))
         lo = lo.reshape(lo.shape[-1:])
-        lrv, regv = col_vectors(F_upd.shape[1] - 2, upd_is_user)
+        lrv, regv = col_vectors(
+            F_upd.shape[1] - 2, upd_is_user, lr, K,
+            lr_bu if upd_is_user else lr_bi, K_bu if upd_is_user else K_bi,
+            learned)
         return sharded_half_pass(
             F_upd, F_full, mu, (kl, og, rb, mb, lo), lrv, regv,
             W=W, chunk=chunk, row_mean=row_mean, clamp_pred=clamp_pred,
             lo_r=lo_r, hi_r=hi_r, bias_none=(bias_mode == 'none'),
-            inner_steps=inner_steps, use_pallas_half=use_pallas_half,
-            pallas_interpret=pallas_interpret)
+            inner_steps=inner_steps)
 
     def device_fn(Paug, Qaug, mu, pkl, pog, prb, pmb, plo,
                   qkl, qog, qrb, qmb, qlo):
@@ -278,7 +202,7 @@ def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
         Qaug, sse_q = half_pass(Qaug, P_full, mu, qkl, qog, qrb, qmb, qlo,
                                 False)
         if slice_axis is not None:
-            # Zinkevich parameter averaging over the DCN axis: one pmean
+            # Zinkevich parameter averaging over the slice axis: one pmean
             # of each factor side per epoch (the only inter-slice
             # communication)
             Paug = jax.lax.pmean(Paug, slice_axis)
@@ -294,7 +218,7 @@ def make_sharded_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
         in_specs = (PS(axis), PS(axis), PS()) + (PS(axis),) * 10
         out_specs = (PS(axis), PS(axis), PS())
     else:
-        # factors: row-sharded over ICI, replicated over slices (re-synced
+        # factors: row-sharded within a slice, replicated over slices (re-synced
         # by the pmean every epoch); layouts: sharded over both axes
         in_specs = (PS(axis), PS(axis), PS()) \
             + (PS(slice_axis, axis),) * 10

@@ -1,7 +1,7 @@
 '''
 Distributed SGD matrix factorization over a device mesh.
 
-Two schemes, both pure-JAX collectives over ICI (no custom transport):
+Two schemes, both pure-JAX collectives (no custom transport):
 
 * **Ring DSGD** (Gemulla et al. KDD'11 diagonal-block schedule): users and
   items are partitioned into D blocks.  Device d owns user-block d
@@ -11,7 +11,7 @@ Two schemes, both pure-JAX collectives over ICI (no custom transport):
   no write conflicts — then the Q shards rotate one hop around the ring
   via ``ppermute``.  After D steps every rating has been visited once:
   one full epoch, factors fully sharded, communication = D Q-shard hops
-  riding ICI neighbor links.
+  between neighbors.
 
 * **Zinkevich parameter averaging** (the production version of the
   reference's two-machine simulation, ``gradient_descent.py:124-211``):

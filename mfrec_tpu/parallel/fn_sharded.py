@@ -21,18 +21,17 @@ the side it writes, exactly like the SVD++ tier
 Users/items are range-partitioned like the plain sharded alternating
 engine; each shard is padded by W rows so window updates never cross
 shards, and gather indices into all-gathered arrays are padded-global
-ids.  Communication per epoch = 5 ICI all_gathers (X, Y, Qaug, Paug,
+ids.  Communication per epoch = 5 all_gathers (X, Y, Qaug, Paug,
 G+bu).
 '''
 from __future__ import annotations
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as PS
 from jax import shard_map
 
-from mfrec_tpu.ops.sgd_mf import clamp
+from mfrec_tpu.ops.sgd_mf import clamp, col_vectors
 from mfrec_tpu.ops.sgd_mf import _agg_window as _chunked_agg
 from mfrec_tpu.parallel.alternating_sharded import sharded_half_pass
 
@@ -40,8 +39,7 @@ from mfrec_tpu.parallel.alternating_sharded import sharded_half_pass
 def make_sharded_fn_epoch(mesh, W, lr, lr_bu, lr_bi, lr_xy, K, K_bu,
                           K_bi, K_x=None, K_y=None, clamp_pred=True,
                           lo_r=1.0, hi_r=5.0, chunk=4096, row_mean=True,
-                          axis='dp', inner_steps=1, use_pallas_half=False,
-                          pallas_interpret=None):
+                          axis='dp', inner_steps=1):
     '''Jitted multi-chip FN epoch:
 
         (Paug, Qaug, Xpad, Ypad, mu, nrm, p_layout..., q_layout...)
@@ -55,28 +53,11 @@ def make_sharded_fn_epoch(mesh, W, lr, lr_bu, lr_bi, lr_xy, K, K_bu,
     '''
     K_x = K if K_x is None else K_x
     K_y = K if K_y is None else K_y
-    if pallas_interpret is None:
-        pallas_interpret = jax.default_backend() == 'cpu'
 
     def strip(kl, og, rb, mb, lo):
         kl, og, rb, mb = (x.reshape(x.shape[-2:]) for x in
                           (kl, og, rb, mb))
         return kl, og, rb, mb, lo.reshape(lo.shape[-1:])
-
-    def col_vectors(k, upd_is_user):
-        # user rows [a_u | bu | 1]: factor columns FROZEN (derived
-        # profiles), only b_u trains; item rows [q | 1 | bi]: q + b_i
-        lrv = np.zeros(k + 2, np.float32)
-        regv = np.zeros(k + 2, np.float32)
-        if upd_is_user:
-            lrv[k] = lr_bu
-            regv[k] = K_bu
-        else:
-            lrv[:k] = lr
-            regv[:k] = K
-            lrv[k + 1] = lr_bi
-            regv[k + 1] = K_bi
-        return jnp.asarray(lrv), jnp.asarray(regv)
 
     def accumulate(target, layout, source_fn, mean):
         '''Accumulate source_fn(batch) rows into local `target` windows.'''
@@ -113,21 +94,21 @@ def make_sharded_fn_epoch(mesh, W, lr, lr_bu, lr_bi, lr_xy, K, K_bu,
         Paug = Paug.at[:, :k].set(A)
 
         # 3) user half-pass (b_u only) + 4) item half-pass (q, b_i)
-        lrv_u, regv_u = col_vectors(k, True)
+        # user rows [a_u | bu | 1]: factor columns FROZEN (derived
+        # profiles), only b_u trains; item rows [q | 1 | bi]: q + b_i
+        lrv_u, regv_u = col_vectors(k, True, lr, K, lr_bu, K_bu,
+                                    learned=True, freeze_factors=True)
         Paug, sse_p = sharded_half_pass(
             Paug, Q_full, mu, p_layout, lrv_u, regv_u, W=W, chunk=chunk,
             row_mean=row_mean, clamp_pred=clamp_pred, lo_r=lo_r,
-            hi_r=hi_r, inner_steps=inner_steps,
-            use_pallas_half=use_pallas_half,
-            pallas_interpret=pallas_interpret)
+            hi_r=hi_r, inner_steps=inner_steps)
         P_full = jax.lax.all_gather(Paug, axis, tiled=True)
-        lrv_i, regv_i = col_vectors(k, False)
+        lrv_i, regv_i = col_vectors(k, False, lr, K, lr_bi, K_bi,
+                                    learned=True)
         Qaug, sse_q = sharded_half_pass(
             Qaug, P_full, mu, q_layout, lrv_i, regv_i, W=W, chunk=chunk,
             row_mean=row_mean, clamp_pred=clamp_pred, lo_r=lo_r,
-            hi_r=hi_r, inner_steps=inner_steps,
-            use_pallas_half=use_pallas_half,
-            pallas_interpret=pallas_interpret)
+            hi_r=hi_r, inner_steps=inner_steps)
 
         # 5) G[u] = nrm_u * sum_i err_ui q_i (post-half-pass factors)
         Q_full2 = jax.lax.all_gather(Qaug, axis, tiled=True)

@@ -15,21 +15,21 @@ Users/items are range-partitioned exactly like the plain sharded
 alternating engine (``parallel.alternating_sharded``): each shard is
 padded by W rows so window updates never cross shards, and gather
 indices into all-gathered arrays are padded-global ids.  Communication
-per epoch = 4 ICI all_gathers (Y, Q, Peff, G).
+per epoch = 4 all_gathers (Y, Q, Peff, G).
 
 Reference seed: ``gd_estimator.pyx:785-898`` (the loop the reference
 intended; its serial version is defective — SURVEY.md §2.6).
 '''
 from __future__ import annotations
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as PS
 from jax import shard_map
 
-from mfrec_tpu.ops.sgd_mf import clamp
-# single source of truth for the one-hot MXU window-aggregation numerics
+from mfrec_tpu.ops.sgd_mf import clamp, col_vectors
+from mfrec_tpu.parallel.alternating_sharded import sharded_half_pass
+# single source of truth for the one-hot matmul window-aggregation numerics
 # (bf16 operands, f32 accumulation, cnt clamp) — a fix there must apply
 # to the sharded SVD++ epoch too, so no local copy
 from mfrec_tpu.ops.sgd_mf import _agg_window as _chunked_agg
@@ -37,9 +37,7 @@ from mfrec_tpu.ops.sgd_mf import _agg_window as _chunked_agg
 
 def make_sharded_implicit_epoch(mesh, W, lr, lr_y, K, K_y, clamp_pred=True,
                                 lo_r=1.0, hi_r=5.0, chunk=4096,
-                                row_mean=True, axis='dp', inner_steps=1,
-                                use_pallas_half=False,
-                                pallas_interpret=None):
+                                row_mean=True, axis='dp', inner_steps=1):
     '''Jitted multi-chip SVD++ epoch:
 
         (Paug, Qaug, Ypad, mu, nrm, p_layout..., q_layout...)
@@ -57,79 +55,14 @@ def make_sharded_implicit_epoch(mesh, W, lr, lr_y, K, K_y, clamp_pred=True,
                           (kl, og, rb, mb))
         return kl, og, rb, mb, lo.reshape(lo.shape[-1:])
 
-    if pallas_interpret is None:
-        pallas_interpret = jax.default_backend() == 'cpu'
-
-    def half_pass(F_upd, F_full, mu, kl, og, rb, mb, lo):
-        '''Fixed-bias sorted-window half-pass (local rows only).'''
-        def step(carry, batch):
-            F_upd, sse = carry
-            kli, ogi, r, m, lo_b = batch
-            ff = F_full[ogi]
-            colmask = jnp.ones((ff.shape[1],), ff.dtype).at[-2:].set(0.0)
-            ch = min(chunk, kli.shape[0])
-            pad = -kli.shape[0] % ch
-            if pad:
-                ff = jnp.pad(ff, ((0, pad), (0, 0)))
-                kli = jnp.pad(kli, (0, pad))
-                m = jnp.pad(m, (0, pad))
-                r = jnp.pad(r, (0, pad))
-            if use_pallas_half:
-                # fused single-chip kernel per local batch (VERDICT r4
-                # #7; see alternating_sharded — same flag, same
-                # interpret-mode parity contract).  The frozen bias/const
-                # columns ride a per-column lr of 0, like the single-chip
-                # fixed-bias tier.
-                from mfrec_tpu.ops.pallas_half_pass import half_pass_batch
-                k2 = F_upd.shape[1]
-                lrv = jnp.asarray(np.r_[np.full(k2 - 2, lr, np.float32),
-                                        0.0, 0.0])
-                regv = jnp.full((k2,), K, jnp.float32)
-                win = jax.lax.dynamic_slice_in_dim(F_upd, lo_b, W, 0)
-                win, sse_b = half_pass_batch(
-                    win, ff, r, m, kli, lrv, regv, mu, W, chunk=ch,
-                    clamp_pred=clamp_pred, lo_r=lo_r, hi_r=hi_r,
-                    row_mean=row_mean, interpret=pallas_interpret,
-                    inner_steps=inner_steps, all2d=True,
-                    dot_sum=k2 <= 128)
-                F_upd = jax.lax.dynamic_update_slice_in_dim(
-                    F_upd, win, lo_b, 0)
-                return (F_upd, sse + sse_b), None
-            B = kli.shape[0]
-            kc = kli.reshape(B // ch, ch)
-            onehot = (kc[:, :, None] ==
-                      jnp.arange(W)[None, None, :]).astype(jnp.bfloat16)
-            if row_mean:
-                mc = m.reshape(B // ch, ch).astype(jnp.bfloat16)
-                cnt = jnp.einsum('nc,ncw->w', mc, onehot,
-                                 preferred_element_type=jnp.float32)
-                cnt = jnp.maximum(cnt, 1.0)[:, None]
-            win = jax.lax.dynamic_slice_in_dim(F_upd, lo_b, W, 0)
-
-            # fori_loop, not python range (trace size at high T)
-            def sweep(t, carry):
-                win, sse = carry
-                fu = win[kli]
-                pred = mu + (fu * ff).sum(-1)
-                if clamp_pred:
-                    pred = clamp(pred, lo_r, hi_r)
-                err = (r - pred) * m
-                sse = jnp.where(t == 0, sse + (err * err).sum(), sse)
-                g = err[:, None] * ff - K * fu * m[:, None]
-                gc = g.reshape(B // ch, ch, -1).astype(jnp.bfloat16)
-                gsum = jnp.einsum('nck,ncw->wk', gc, onehot,
-                                  preferred_element_type=jnp.float32)
-                if row_mean:
-                    gsum = gsum / cnt
-                return win + lr * gsum * colmask[None, :], sse
-            win, sse = jax.lax.fori_loop(0, inner_steps, sweep, (win, sse))
-            F_upd = jax.lax.dynamic_update_slice_in_dim(F_upd, win, lo_b, 0)
-            return (F_upd, sse), None
-
-        (F_upd, sse), _ = jax.lax.scan(
-            step, (F_upd, jnp.zeros((), F_upd.dtype)),
-            (kl, og, rb, mb, lo))
-        return F_upd, sse
+    def half_pass(F_upd, F_full, mu, kl, og, rb, mb, lo, upd_is_user):
+        '''Fixed-bias sorted-window half-pass (local rows only): the
+        bias/const columns ride a per-column lr of 0.'''
+        lrv, regv = col_vectors(F_upd.shape[1] - 2, upd_is_user, lr, K)
+        return sharded_half_pass(
+            F_upd, F_full, mu, (kl, og, rb, mb, lo), lrv, regv, W=W,
+            chunk=chunk, row_mean=row_mean, clamp_pred=clamp_pred,
+            lo_r=lo_r, hi_r=hi_r, inner_steps=inner_steps)
 
     def accumulate(target, layout, source_fn, mean):
         '''Accumulate source_fn(batch) rows into local `target` windows.'''
@@ -159,9 +92,9 @@ def make_sharded_implicit_epoch(mesh, W, lr, lr_y, K, K_y, clamp_pred=True,
         # 2+3) alternating half-passes on the effective factors
         Peff = Paug + Apad
         Q_full = jax.lax.all_gather(Qaug, axis, tiled=True)
-        Peff, sse_p = half_pass(Peff, Q_full, mu, *p_layout)
+        Peff, sse_p = half_pass(Peff, Q_full, mu, *p_layout, True)
         P_full = jax.lax.all_gather(Peff, axis, tiled=True)
-        Qaug, sse_q = half_pass(Qaug, P_full, mu, *q_layout)
+        Qaug, sse_q = half_pass(Qaug, P_full, mu, *q_layout, False)
         Paug = Peff - Apad
         # 4) error-weighted item-factor sums into user windows
         Q_full = jax.lax.all_gather(Qaug, axis, tiled=True)

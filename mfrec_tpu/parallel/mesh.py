@@ -4,8 +4,9 @@ Device-mesh helpers.
 The reference has no operational parallelism — its only artifact is a
 single-process simulation of parameter-averaged SGD
 (``gradient_descent.py:124-211``).  Here the scaling substrate is a
-``jax.sharding.Mesh`` over ICI with XLA collectives; these helpers build
-meshes and shardings.
+``jax.sharding.Mesh`` with XLA collectives; these helpers build meshes
+and shardings.  A mesh follows the algorithm, not a link topology: the
+devices of one host reach each other all to all.
 '''
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ def make_mesh(n_devices=None, axis_name='dp'):
 
 
 def make_mesh_2d(n_slices, per_slice, axis_names=('slice', 'dp')):
-    '''[n_slices, per_slice] mesh for multi-slice training: the leading
-    axis is the DCN (inter-slice) dimension — only parameter-averaging
-    collectives ride it — and the trailing axis is ICI within a slice
-    (all_gather/ppermute-heavy).  On real hardware order devices so the
-    trailing axis maps to intra-slice links.'''
+    '''[n_slices, per_slice] mesh for multi-slice training: each slice
+    (leading axis) trains its own shard of the ratings against its own
+    factor replica, and the replicas are parameter-averaged once per
+    epoch (one pmean over this axis); within a slice (trailing axis) the
+    factor rows are sharded and the half-passes all_gather them.'''
     devices = jax.devices()[:n_slices * per_slice]
     if len(devices) < n_slices * per_slice:
         raise ValueError('need %d devices, have %d'

@@ -3,9 +3,9 @@ Ring-rotation multi-chip alternating SGD — all_gather-free factor flow.
 
 The sharded alternating engine (``parallel.alternating_sharded``) gathers
 the full read-side factor array once per half-pass: every device holds a
-replica of Q during the P pass (and of P during the Q pass).  Total ICI
-bytes per half-pass are (D-1)/D * |Q| per device either way, but the
-replica costs |Q| of HBM per device — the wall once the item catalog is
+replica of Q during the P pass (and of P during the Q pass).  Total
+bytes moved per half-pass are (D-1)/D * |Q| per device either way, but the
+replica costs |Q| of device memory per device — the wall once the item catalog is
 production-sized (10M items x rank 64 = 2.5 GB per device as a replica,
 vs 2/D of that for a rotating shard pair).
 
@@ -32,7 +32,7 @@ tests/test_ring_alternating.py).
 Reference seed: the ring schedule generalizes the reference's only
 parallel artifact, the 2-machine Zinkevich averaging prototype
 (``mfrec/recommendation/gradient_descent.py:124-211``), to a
-communication-optimal TPU layout; the reference itself has no
+communication-optimal mesh layout; the reference itself has no
 distributed backend (SURVEY.md §2.5).
 '''
 from __future__ import annotations
@@ -140,7 +140,7 @@ def make_ring_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
     Paug: [D*(Ushard+W), k+2] row-sharded over `axis`; Qaug likewise;
     layouts from ``build_ring_alternating_layout``.  Unlike the
     all_gather engine, the read side never exists as a replica: each
-    device reads one [shard+W, k+2] block that rotates one ICI hop per
+    device reads one [shard+W, k+2] block that rotates one device per
     round.  Fixed-bias augmented-factor convention (bias columns frozen);
     'learned' is single-chip-engine-only, as in the sharded engine.
     '''
@@ -210,7 +210,7 @@ def make_ring_alternating_epoch(mesh, W, lr, K, bias_mode='fixed',
                                            round_batches)
             # hand the resident read shard one hop around the ring; the
             # final hop returns it home (uniform scan body, one spare
-            # ICI message per half-pass)
+            # message per half-pass)
             F_read = jax.lax.ppermute(F_read, axis, perm)
             return (F_upd, F_read, sse), None
 

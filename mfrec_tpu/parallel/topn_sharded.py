@@ -1,14 +1,13 @@
 '''
 Mesh-sharded top-N retrieval (SURVEY.md §2.5, "Top-N retrieval at scale"):
 Q sharded over the ITEMS axis, per-shard blocked P@Q^T + top-k on every
-device, one all_gather of the [B, n] per-shard candidates over ICI, then
+device, one all_gather of the [B, n] per-shard candidates, then
 a global re-rank of the [B, D*n] pool — communication is O(B*n*D), never
 the score matrix.
 
-The per-shard kernel is the existing fused path (``ops.topk.topn_scores``
-under XLA; ``ops.pallas_topk`` on TPU backends), so single-chip and
-sharded results are identical by construction: the global top-n is a
-subset of the union of per-shard top-ns.
+The per-shard scorer is the single-device path (``ops.topk.topn_scores``),
+so single-device and sharded results are identical by construction: the
+global top-n is a subset of the union of per-shard top-ns.
 
 Rated-item masking: global rated ids are remapped to shard-local ids on
 device (valid only where the id falls in this shard's range), so masking
@@ -25,18 +24,13 @@ from jax.sharding import PartitionSpec as PS
 from jax import shard_map
 
 from mfrec_tpu.ops import topk as topk_ops
-from mfrec_tpu.utils import math_
 
 
-def pad_items_sharded(Q, bi, D, block=None):
-    '''Pad Q/bi rows to a D multiple (and each shard to a `block`
-    multiple when given — the Pallas kernel's requirement); padded rows
-    get bi = NEG so they never reach a shard's top-n.
-    Returns (Qp, bip, Ishard).'''
+def pad_items_sharded(Q, bi, D):
+    '''Pad Q/bi rows to a D multiple; padded rows get bi = NEG so they
+    never reach a shard's top-n.  Returns (Qp, bip, Ishard).'''
     I = Q.shape[0]
     Ishard = -(-I // D)
-    if block:
-        Ishard = -(-Ishard // block) * block
     Ipad = Ishard * D
     Qp = np.zeros((Ipad, Q.shape[1]), np.float32)
     Qp[:I] = Q
@@ -46,8 +40,7 @@ def pad_items_sharded(Q, bi, D, block=None):
 
 
 def make_sharded_topn(mesh, n, Ishard, block=1024, predictor='bias',
-                      lo=1.0, hi=5.0, use_pallas=False, axis='dp',
-                      score_dtype=None, packed_merge=False):
+                      lo=1.0, hi=5.0, axis='dp'):
     '''Build the jitted sharded retrieval:
 
         fn(P_rows [B,k], Q [D*Ishard,k], bu [B], bi [D*Ishard], mu,
@@ -57,59 +50,27 @@ def make_sharded_topn(mesh, n, Ishard, block=1024, predictor='bias',
     replicated (global item ids, sorted descending).'''
     n = int(n)
 
-    def device_fn(P_rows, Q_shard, bu, bi_shard, mu, rated_idx, rated_mask,
-                  rblk_i, rblk_m):
+    def device_fn(P_rows, Q_shard, bu, bi_shard, mu, rated_idx, rated_mask):
         d = jax.lax.axis_index(axis)
         offset = d * Ishard
         # rows added by pad_items_sharded carry bi = NEG; predictors
         # whose score form ignores the item bias (dot/dot_plus_one)
         # would otherwise rank them as real zero-vector items
         pad_neg = bi_shard <= topk_ops.NEG / 2
-        if use_pallas:
-            from mfrec_tpu.ops import pallas_topk
-            # map the predictor mode onto the kernel's fixed
-            # mu + bu + bi + dot score form (pad rows keep their NEG
-            # bias so they never reach the top-n); logistic ranks on
-            # the pre-link z — the sigmoid is applied monotonically to
-            # the final scores below
-            if predictor == 'dot_plus_one':
-                bu_k = jnp.zeros_like(bu)
-                bi_k = jnp.where(pad_neg, bi_shard, 0.0)
-                mu_k = jnp.float32(1.0)
-            elif predictor == 'dot':
-                bu_k = jnp.zeros_like(bu)
-                bi_k = jnp.where(pad_neg, bi_shard, 0.0)
-                mu_k = jnp.float32(0.0)
-            elif predictor == 'logistic':
-                bu_k, bi_k, mu_k = bu, bi_shard, jnp.float32(0.0)
-            else:                                   # 'bias'
-                bu_k, bi_k, mu_k = bu, bi_shard, mu
-            # rated masking: the [nblocks_total, B, Lb] block-local
-            # layout was bucketed on the HOST (block_rated_layout needs
-            # concrete ids) and is sharded over the block axis, so this
-            # shard's slice is exactly its own blocks' local ids.
-            # shard row count must be a block multiple (pad upstream)
-            idx, sc = pallas_topk.topn_scores_pallas(
-                P_rows, Q_shard, bu_k, bi_k, mu_k, n=n, block=block,
-                rated_blocks=(rblk_i, rblk_m),
-                score_dtype=score_dtype, packed_merge=packed_merge,
-                interpret=jax.default_backend() == 'cpu')
-        else:
-            # remap global rated ids to shard-local (out-of-shard ->
-            # mask 0)
-            local = rated_idx - offset
-            in_shard = (local >= 0) & (local < Ishard)
-            lmask = rated_mask * in_shard
-            lidx = jnp.where(in_shard, local, 0)
-            idx, sc = topk_ops.topn_scores(
-                P_rows, Q_shard, bu, bi_shard, mu, lidx, lmask, n,
-                block=min(block, Q_shard.shape[0]), predictor=predictor,
-                lo=lo, hi=hi)
-            # topn_scores only masks its OWN block padding; the shard
-            # pad rows score dot(+1)=0/1 under dot/dot_plus_one (and
-            # exactly `lo` under logistic) and can surface as phantom
-            # ids >= nbr_items — force them to NEG by bias lookup
-            sc = jnp.where(pad_neg[idx], topk_ops.NEG, sc)
+        # remap global rated ids to shard-local (out-of-shard -> mask 0)
+        local = rated_idx - offset
+        in_shard = (local >= 0) & (local < Ishard)
+        lmask = rated_mask * in_shard
+        lidx = jnp.where(in_shard, local, 0)
+        idx, sc = topk_ops.topn_scores(
+            P_rows, Q_shard, bu, bi_shard, mu, lidx, lmask, n,
+            block=min(block, Q_shard.shape[0]), predictor=predictor,
+            lo=lo, hi=hi)
+        # topn_scores only masks its OWN block padding; the shard pad
+        # rows score dot(+1)=0/1 under dot/dot_plus_one (and exactly `lo`
+        # under logistic) and can surface as phantom ids >= nbr_items —
+        # force them to NEG by bias lookup
+        sc = jnp.where(pad_neg[idx], topk_ops.NEG, sc)
         idx = idx + offset
         # pool the [B, n] candidates from all shards and re-rank
         all_s = jax.lax.all_gather(sc, axis)        # [D, B, n]
@@ -124,8 +85,7 @@ def make_sharded_topn(mesh, n, Ishard, block=1024, predictor='bias',
 
     sharded = shard_map(
         device_fn, mesh=mesh,
-        in_specs=(PS(), PS(axis), PS(), PS(axis), PS(), PS(), PS(),
-                  PS(axis), PS(axis)),
+        in_specs=(PS(), PS(axis), PS(), PS(axis), PS(), PS(), PS()),
         out_specs=(PS(), PS()),
         check_vma=False)
     return jax.jit(sharded)
@@ -133,52 +93,29 @@ def make_sharded_topn(mesh, n, Ishard, block=1024, predictor='bias',
 
 @functools.lru_cache(maxsize=8)
 def _cached_sharded_topn(mesh_key, n, Ishard, block, predictor, lo, hi,
-                         use_pallas, axis, score_dtype, packed_merge):
+                         axis):
     from mfrec_tpu.parallel.mesh import make_mesh
     mesh = make_mesh(mesh_key)
     return make_sharded_topn(mesh, n, Ishard, block=block,
-                             predictor=predictor, lo=lo, hi=hi,
-                             use_pallas=use_pallas, axis=axis,
-                             score_dtype=score_dtype,
-                             packed_merge=packed_merge)
+                             predictor=predictor, lo=lo, hi=hi, axis=axis)
 
 
 def sharded_topn(P_rows, Q, bu_rows, bi, mu, rated_idx, rated_mask, n,
                  block=1024, predictor='bias', lo=1.0, hi=5.0,
-                 use_pallas=False, n_devices=None, score_dtype=None,
-                 packed_merge=False):
+                 n_devices=None):
     '''Convenience wrapper: builds the mesh over all visible devices,
     pads/shards Q, and runs the sharded retrieval; padded rows are
     suppressed by NEG scores (they can only appear, NEG-scored, when a
     user has fewer than n rankable items — exactly like the block
-    padding in the single-chip path).  Host-facing twin of
+    padding in the single-device path).  Host-facing twin of
     ``ops.topk.topn_scores`` (same return contract).'''
     D = n_devices or len(jax.devices())
     Qp, bip, Ishard = pad_items_sharded(np.asarray(Q, np.float32),
-                                        np.asarray(bi, np.float32), D,
-                                        block=block if use_pallas else None)
+                                        np.asarray(bi, np.float32), D)
     fn = _cached_sharded_topn(D, int(n), Ishard, block, predictor,
-                              float(lo), float(hi), bool(use_pallas), 'dp',
-                              score_dtype, bool(packed_merge))
-    if use_pallas:
-        # bucket rated ids on the host (concrete values needed); the
-        # [nblocks_total, B, Lb] layout shards over its block axis
-        from mfrec_tpu.ops.pallas_topk import block_rated_layout
-        rb_i, rb_m = block_rated_layout(rated_idx, rated_mask, block,
-                                        Ishard * D // block)
-    else:
-        rb_i = np.zeros((D, 1, 1), np.int32)
-        rb_m = np.zeros((D, 1, 1), np.float32)
+                              float(lo), float(hi), 'dp')
     idx, sc = fn(jnp.asarray(P_rows, jnp.float32), jnp.asarray(Qp),
                  jnp.asarray(bu_rows, jnp.float32), jnp.asarray(bip),
                  jnp.float32(mu), jnp.asarray(rated_idx, jnp.int32),
-                 jnp.asarray(rated_mask, jnp.float32),
-                 jnp.asarray(rb_i), jnp.asarray(rb_m))
-    idx, sc = np.asarray(idx), np.array(sc)
-    if use_pallas and predictor == 'logistic':
-        # the Pallas path ranked on the pre-link z (monotone in the
-        # final score); map through the sigmoid link for score parity
-        # with the XLA path
-        sc = math_.sigmoid(np.clip(sc, -60.0, 60.0),
-                           scale_range=hi - lo, y0=lo)
-    return idx, sc
+                 jnp.asarray(rated_mask, jnp.float32))
+    return np.asarray(idx), np.array(sc)

@@ -107,7 +107,7 @@ def test_unknown_engine_raises(small_dataset):
 
 
 def test_multislice_2x4_converges(small_dataset):
-    '''2 DCN slices x 4 ICI devices: per-slice rating shards, one pmean
+    '''2 slices x 4 devices: per-slice rating shards, one pmean
     of each factor side per epoch (Zinkevich over the slice axis).'''
     (u, i, v), _ = small_dataset
     m = _train(u, i, v, 'alternating_sharded', n_slices=2)

@@ -1,4 +1,4 @@
-'''Cross-engine accuracy parity at ML-100K-like scale: the TPU performance
+'''Cross-engine accuracy parity at ML-100K-like scale: the performance
 engines (fused, alternating, dsgd) must reach held-out RMSE comparable to
 each other and clearly better than the bias-only baseline — the empirical
 parity protocol of BASELINE.md (the Py2 reference itself cannot run).'''
@@ -53,8 +53,8 @@ def test_engines_reach_comparable_test_rmse(ml100k_like):
     configs = {
         'fused': {'learning_rate': 0.01, 'min_epochs': 40, 'max_epochs': 40,
                   'batch_size': 8192},
-        # pin the sweep count: the shipped default climbed the TPU
-        # ladder to T=128, which is 16x this test's tuned work on CPU
+        # pin the sweep count: the shipped default T=128 is 16x this
+        # test's tuned work on CPU
         'alternating': {'learning_rate': 0.5, 'min_epochs': 80,
                         'max_epochs': 80, 'batch_size': 8192,
                         'inner_steps': 8},

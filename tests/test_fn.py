@@ -169,7 +169,7 @@ def test_fn_save_load_roundtrip(tmp_path, small_dataset):
 
 
 def test_fn_alternating_beats_bias_baseline(small_dataset):
-    '''The DEFAULT engine (sorted-window alternating, VERDICT r4 #2) at
+    '''The DEFAULT engine (sorted-window alternating) at
     default rates: held-out RMSE beats the bias-only baseline.'''
     from mfrec_tpu.eval.metrics import test_predict_rating
     (u, i, v), test = small_dataset
@@ -196,7 +196,7 @@ def test_fn_alternating_beats_bias_baseline(small_dataset):
 
 def test_fn_alternating_at_least_fused_quality(small_dataset):
     '''Order-changing tier parity, directional: the alternating engine
-    (T in-VMEM sweeps at the row-mean default rate) must converge AT
+    (T sweeps at the row-mean default rate) must converge AT
     LEAST as deep as the fused tier at its tuned per-sample rates —
     measured CPU-side: 0.250 vs 0.441 after 40 epochs (it converges far
     deeper; an equality band would be the wrong shape of assertion).'''
@@ -224,7 +224,7 @@ def test_fn_alternating_at_least_fused_quality(small_dataset):
 
 
 def test_fn_inner_steps_improve_per_epoch_quality(small_dataset):
-    '''More in-VMEM sweeps must not hurt per-epoch convergence (the
+    '''More inner sweeps must not hurt per-epoch convergence (the
     ladder's quality direction).'''
     (u, i, v), _ = small_dataset
     U, I = int(u.max()) + 1, int(i.max()) + 1

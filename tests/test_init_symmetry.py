@@ -6,9 +6,9 @@ symmetry under JOINT training: every factor column receives the
 identical gradient forever, so the model trains as rank 1 regardless of
 ``nbr_features``.  The reference never hits this because its Funk loop
 is feature-SEQUENTIAL (features differentiate against the residual of
-earlier ones).  Found end to end at the ML-10M bench shape
-(bench_logs/r4/plateau_e2e_rank1_repro.log: train RMSE stalls at 0.692,
-a hair under the 0.703 bias floor, vs 0.29 ops-level with random init).
+earlier ones).  Found end to end at the ML-10M bench shape (train RMSE
+stalls at 0.692, a hair under the 0.703 bias floor, vs 0.29 ops-level
+with random init).
 
 ``GDRecommender.init_mode``: 'auto' (default) = N(0, feature_init) for
 joint engines, reference-exact constant for the sequential funk tiers;

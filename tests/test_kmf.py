@@ -72,7 +72,7 @@ def test_kmf_model_end_to_end(small_dataset):
                                   'regularization_users': 0.05,
                                   'regularization_items': 0.05,
                                   # pin the pre-T=64 sweep count (the
-                                  # shipped KMF default is TPU-tuned)
+                                  # shipped KMF default is T=64)
                                   'inner_steps': 8})
     model.seed(0)
     model.set_ratings(u, i, v)
@@ -203,7 +203,7 @@ def _kmf(u, i, v, **over):
 
 
 def test_kmf_min_improvement_stops_early(small_dataset):
-    '''VERDICT r4 #6: min_improvement was an exposed-but-dead parameter
+    '''min_improvement was an exposed-but-dead parameter
     (faithful to the reference's identical defect); it now stops every
     KMF engine early through ConvergenceDriver.'''
     (u, i, v), _ = small_dataset

@@ -21,8 +21,8 @@ def _small_gd(small_dataset, **over):
     params = {'min_epochs': 10, 'max_epochs': 10, 'nbr_features': 6,
               'learning_rate': 0.02, 'regularization_model': 0.02,
               # pin the sweep count these tests were tuned under: the
-              # shipped default climbed the TPU ladder to T=128, which
-              # is 16x the CPU work and not what's under test here
+              # shipped default T=128 is 16x the CPU work and not what's
+              # under test here
               'inner_steps': 8}
     params.update(over)
     model = GDRecommender(U, I, params)

@@ -181,7 +181,7 @@ def test_sharded_alternating_trains(mesh8):
     # Parity vs the single-device alternating epoch on the same data and
     # the same symmetry-broken init — the assertion that actually catches
     # row/column-mixing sharding bugs (with constant init every row was
-    # identical and any permutation passed, ADVICE r4).
+    # identical and any permutation passed).
     spl = sgd_mf.sorted_pass_layout(users, items, vals, 512, axis='user',
                                     max_window=64)
     sql = sgd_mf.sorted_pass_layout(users, items, vals, 512, axis='item',

@@ -290,41 +290,6 @@ def test_coerce_state_rejects_dtype_mismatch(tmp_path):
     assert out.dtype == np.float64 and len(log) == 1   # trained fresh
 
 
-def test_batcher_clamps_oversize_n_for_packed_merge():
-    '''One /recommend?n>block request must not 500 the whole chunk on
-    the packed-merge retrieval — n is clamped to the view's max_n.'''
-    from mfrec_tpu.serving.server import _Batcher
-    seen = {}
-
-    class FakeModel:
-        nbr_items = 4096
-
-        def recommend_batch(self, users, nbr_recommendations,
-                            rated_pad_to=None, **kw):
-            seen['n'] = nbr_recommendations
-            B = len(users)
-            return (np.zeros((B, nbr_recommendations), np.int64),
-                    np.ones((B, nbr_recommendations), np.float32))
-
-    class FakeView:
-        model = FakeModel()
-        rated_pad = 8
-        max_n = 1024
-
-        def retrieval_kwargs(self):
-            return {}
-
-    view = FakeView()
-    b = _Batcher(lambda: view, nbr_recommendations=10, window_ms=1.0,
-                 max_batch=8, pad_to=4, submit_timeout_s=30.0)
-    try:
-        items, scores = b.submit(0, 1500)
-        assert seen['n'] == 1024                  # clamped, not 2048
-        assert len(items) == 1024                 # truncated to device n
-    finally:
-        b.stop()
-
-
 def test_ranking_metrics_ignores_neg_filler():
     '''recommend_batch filler slots (id 0, score NEG) must not count as
     recommendations — phantom hits inflated NDCG/MRR/coverage whenever
@@ -390,13 +355,3 @@ def test_norm_cosine_is_component_mean_centered():
     assert not np.allclose(np.asarray(sim_n), np.asarray(sim_u))
 
 
-def test_pallas_topk_unpadded_q_raises():
-    from mfrec_tpu.ops.pallas_topk import topn_scores_pallas
-    import jax.numpy as jnp
-    P = jnp.zeros((2, 4), jnp.float32)
-    Q = jnp.zeros((1000, 4), jnp.float32)         # not a 1024 multiple
-    bu = jnp.zeros((2,), jnp.float32)
-    bi = jnp.zeros((1000,), jnp.float32)
-    with pytest.raises(ValueError, match='block multiple'):
-        topn_scores_pallas(P, Q, bu, bi, 0.0, n=5, block=1024,
-                           interpret=True)

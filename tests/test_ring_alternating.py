@@ -84,7 +84,7 @@ def test_ring_alternating_trains(mesh8):
     assert hist_r[-1] < hist_r[0] - 0.05
     # Both engines must converge.  They do NOT share a trajectory under
     # symmetry-broken init (the old <0.02 agreement here was an artifact
-    # of the constant-init rank-1 collapse, ADVICE r4): ring's D
+    # of the constant-init rank-1 collapse): ring's D
     # conflict-free rotation rounds see progressively fresher factors
     # WITHIN an epoch, so it converges at least as fast per epoch as the
     # all_gather engine, whose half-passes read a stale full replica.

@@ -1,4 +1,4 @@
-'''Pins for the round-2 fix sweep (r1 VERDICT item 7 + ADVICE items):
+'''Pins for the round-2 fix sweep (review items):
 K2/K3 split, optimize_k applying k, threshold sweep without retraining,
 min_epochs=0, non-chunk-multiple batch sizes, neighborhood candidate cap,
 O(log) Ratings.get, zero-rating-user padded lists.'''
@@ -126,7 +126,7 @@ def test_min_epochs_zero_converge_only(small_dataset):
 
 
 def test_alternating_any_batch_size(small_dataset):
-    '''batch sizes that are not chunk multiples must work (ADVICE r1).'''
+    '''batch sizes that are not chunk multiples must work.'''
     (u, i, v), _ = small_dataset
     pl_ = sgd_mf.sorted_pass_layout(u, i, v, 1000, axis='user')
     ql_ = sgd_mf.sorted_pass_layout(u, i, v, 1000, axis='item')

@@ -1,4 +1,4 @@
-'''Round-4 fixes (r3 VERDICT next #6/#7 + ADVICE findings):
+'''Round-4 fixes (review findings):
 
 * DefaultRate sentinel — a user who DIRECTLY assigns the reference
   default learning rate must train at that rate on the alternating
@@ -188,28 +188,6 @@ def test_pad_rated_lists_pad_to_wins_over_cap(tiny_dataset):
 
 # ------------------------------------------------ ValueError guards
 
-def test_nonidentity_link_agg_tier_raises():
-    from mfrec_tpu.ops import sgd_mf
-    with pytest.raises(ValueError):
-        sgd_mf.make_alternating_epoch(4, 4, lr=0.1, K=0.02,
-                                      link='logistic',
-                                      use_pallas_agg=True)
-
-
-def test_half_pass_group_shape_guard_raises():
-    import jax.numpy as jnp
-    from mfrec_tpu.ops.pallas_half_pass import half_pass_group
-    with pytest.raises(ValueError):
-        half_pass_group(jnp.zeros((70, 9), jnp.float32),    # bad width
-                        jnp.zeros((2, 8, 8), jnp.bfloat16),
-                        jnp.zeros((2, 8)), jnp.zeros((2, 8)),
-                        jnp.zeros((2, 8), jnp.int32),
-                        jnp.zeros((2,), jnp.int32),
-                        jnp.zeros(10, jnp.float32),
-                        jnp.zeros(10, jnp.float32),
-                        0.0, W=4, chunk=8)
-
-
 # --------------------------------------------- serving refresh retry
 
 def test_refresh_loop_retries_after_rebuild_failure(monkeypatch):
@@ -274,47 +252,3 @@ def test_resilience_ok_on_alternating(tiny_dataset):
     assert np.isfinite(m.get_rmse_history()[-1])
 
 
-def test_tloop_resident_raises():
-    '''tloop=True forced together with resident=True is a conflicting
-    request (the tloop kernel is already whole-batch resident) and must
-    raise instead of silently dropping resident (r4 self-review #6).'''
-    import jax.numpy as jnp
-    from mfrec_tpu.ops.pallas_half_pass import half_pass_batch
-    W, B, k = 8, 16, 4
-    with pytest.raises(ValueError, match='resident'):
-        half_pass_batch(jnp.zeros((W, k), jnp.float32),
-                        jnp.zeros((B, k), jnp.float32),
-                        jnp.zeros((B,), jnp.float32),
-                        jnp.ones((B,), jnp.float32),
-                        jnp.zeros((B,), jnp.int32),
-                        jnp.full((k,), 0.1, jnp.float32),
-                        jnp.zeros((k,), jnp.float32),
-                        0.0, W, chunk=B, all2d=True,
-                        tloop=True, resident=True)
-
-
-def test_recommend_batch_threads_fast_options_to_sharded(
-        monkeypatch, tiny_dataset):
-    '''sharded=True must not silently drop score_dtype/packed_merge —
-    they previously reached only the single-chip Pallas path
-    (r4 self-review #3).'''
-    import mfrec_tpu.parallel.topn_sharded as ts
-    (u, i, v), _ = tiny_dataset
-    U, I = int(u.max()) + 1, int(i.max()) + 1
-    m = GDRecommender(U, I, {'nbr_features': 4})
-    m.set_ratings(u, i, v)
-    rng = np.random.default_rng(0)
-    m.P = rng.normal(size=(U, 4)).astype(np.float32)
-    m.Q = rng.normal(size=(I, 4)).astype(np.float32)
-    seen = {}
-
-    def spy(*a, **kw):
-        seen.update(kw)
-        return np.zeros((2, 3), np.int64), np.zeros((2, 3), np.float32)
-
-    monkeypatch.setattr(ts, 'sharded_topn', spy)
-    m.recommend_batch([0, 1], nbr_recommendations=3, sharded=True,
-                      use_pallas=True, score_dtype='bfloat16',
-                      packed_merge=True)
-    assert seen.get('score_dtype') == 'bfloat16'
-    assert seen.get('packed_merge') is True

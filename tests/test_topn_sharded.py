@@ -1,14 +1,12 @@
 '''Mesh-sharded top-N retrieval (SURVEY §2.5 "Top-N retrieval at scale"):
 per-shard top-k + all_gather + global re-rank must be result-identical to
-the single-chip path, with exact rated-item masking across shards.'''
+the single-device path, with exact rated-item masking across shards.'''
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 from mfrec_tpu.data.movielens import ratings_from_arrays
 from mfrec_tpu.ops import topk as topk_ops
-from mfrec_tpu.ops.pallas_topk import topn_scores_pallas, \
-    pad_items_for_pallas
 from mfrec_tpu.parallel.topn_sharded import sharded_topn
 
 
@@ -47,25 +45,6 @@ def test_sharded_masks_rated_across_shards():
         assert not (set(idx[b].tolist()) & rated)
 
 
-def test_pallas_topn_masks_rated_interpret():
-    '''The Pallas kernel's in-kernel rated masking (interpret mode) matches
-    the XLA path exactly.'''
-    P, Q, bu, bi, ridx, rmask = _setup(seed=5, I=256)
-    n, mu = 6, 3.0
-    want_i, want_s = topk_ops.topn_scores(
-        jnp.asarray(P), jnp.asarray(Q), jnp.asarray(bu), jnp.asarray(bi),
-        jnp.float32(mu), jnp.asarray(ridx), jnp.asarray(rmask), n,
-        block=128, predictor='bias')
-    Qp, bip = pad_items_for_pallas(Q, bi, 128)
-    got_i, got_s = topn_scores_pallas(
-        jnp.asarray(P), jnp.asarray(Qp), jnp.asarray(bu), jnp.asarray(bip),
-        mu, n=n, block=128, interpret=True,
-        rated_idx=jnp.asarray(ridx), rated_mask=jnp.asarray(rmask))
-    np.testing.assert_allclose(np.asarray(want_s), np.asarray(got_s),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(want_i), np.asarray(got_i))
-
-
 def test_recommend_batch_sharded_auto(small_dataset):
     '''Model-level: recommend_batch auto-shards on the 8-device mesh and
     matches the explicit single-chip result.'''
@@ -92,21 +71,3 @@ def test_recommend_batch_sharded_auto(small_dataset):
         assert not (set(ids_sh[r].tolist()) & rated)
 
 
-def test_sharded_pallas_honors_predictor_modes():
-    '''The sharded Pallas sub-path must honor the predictor mode like
-    the sharded XLA path (the kernel's fixed mu+bu+bi+dot form is
-    remapped per mode; logistic ranks on z and post-maps the link).'''
-    import os
-    if jax.default_backend() != 'cpu':
-        return                      # interpret-mode Pallas: CPU mesh only
-    P, Q, bu, bi, ridx, rmask = _setup(seed=5, I=512)
-    for mode in ('dot_plus_one', 'dot', 'bias', 'logistic'):
-        want_i, want_s = sharded_topn(P, Q, bu, bi, 3.1, ridx, rmask, 6,
-                                      block=128, predictor=mode,
-                                      lo=1.0, hi=5.0)
-        got_i, got_s = sharded_topn(P, Q, bu, bi, 3.1, ridx, rmask, 6,
-                                    block=128, predictor=mode,
-                                    lo=1.0, hi=5.0, use_pallas=True)
-        np.testing.assert_array_equal(want_i, got_i, err_msg=mode)
-        np.testing.assert_allclose(want_s, got_s, rtol=1e-4, atol=1e-4,
-                                   err_msg=mode)

@@ -1,8 +1,7 @@
-'''Interleaved T-ladder A/B for the FN alternating tier (VERDICT r4 #2:
-"climb its T ladder interleaved").  Methodology: tools/ab_bench.py —
-alternating timed blocks of two inner_steps configs in ONE process.
+'''Interleaved T-ladder A/B for the FN alternating tier: alternating
+timed blocks of two inner_steps configs in ONE process.
 
-Run from the repo root (TPU): ``timeout 1700 python tools/ab_fn.py``.
+Run from the repo root on the GPU: ``python tools/ab_fn.py``.
 Env: AB_T='32,64' (the two rungs), AB_BLOCKS (default 3),
 AB_EPOCHS (epochs per block, default 3).
 '''
@@ -27,8 +26,7 @@ def build(T):
     ep = fn_ops.make_fn_alternating_epoch(
         W_user, W_item, lr=0.15, lr_bu=0.05, lr_bi=0.05, lr_xy=0.15,
         K=0.02, K_bu=0.02, K_bi=0.02, K_x=0.02, K_y=0.02,
-        inner_steps=T, chunk=8192, donate=False,
-        use_pallas_full=jax.default_backend() != 'cpu')
+        inner_steps=T, chunk=8192, donate=False)
     rng = np.random.default_rng(7)
     f = 0.05
     Paug, Qaug = sgd_mf.augment_factors(
